@@ -11,8 +11,13 @@ script exits non-zero):
    as set-up);
 2. hold the kernel (``cim_mvm`` on CUDA tensors) against its plain
    PyTorch version ``bitserial_mvm_ref``, bit-exact (tolerance 0): the
-   CPU tests' shapes under ``act_bits`` 4/6/8, ``signed`` both ways and
-   two block sizes;
+   CPU tests' shapes (K not a multiple of 16 among them) under
+   ``act_bits`` 4/6/8 and ``signed`` both ways, with the blocks the
+   chooser picks, every tile forced with one K slice and with the most
+   slices, and the explicit ``BLOCKS``; a tile the kernel lacks must
+   raise.  Then the int32 wrap-around case (K = 2^17 + 1 products of
+   (-128)·(-128)) with one K slice and split K: the MMA accumulation
+   and the split combine both wrap modulo 2^32;
 3. drive the main path through the user entry points —
    ``flow.compile(...).evaluate("func:torch", check=True)`` — for
    resnet18@224 (batch 4) and the default transformer (batch 1), with
@@ -29,7 +34,13 @@ script exits non-zero):
    (H100 SXM int8 tensor-core peak and HBM rate; the function is one
    int8 GEMM — the ``act_bits`` plane products are the kernel's design,
    not work the function needs) and the yardstick ``torch._int_mm``
-   (timed here only; the port never calls it).
+   (timed here only; the port never calls it).  Each MVM is timed as
+   device time (calls replayed from a CUDA graph, :func:`graph_ms`) and
+   as issued from Python (:func:`cuda_ms`, the host's launch cost
+   included); the ``kernels`` line reports device times.  Each row
+   names the tile and K split the chooser picked, and beside it the
+   fastest of every tile and K split on the same operands (each held
+   equal to the chooser's result).
    ``--profile`` adds one ``torch.profiler`` trace of each path: the
    device's busy share and its top kernels.
 
@@ -55,8 +66,9 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 REPS = 10                     # timed runs per MVM and per path
 CPU_TEST_SHAPES = [(128, 128, 128), (256, 128, 384), (128, 512, 128),
                    (1, 1, 1), (37, 100, 59), (128, 129, 130),
-                   (200, 64, 1000), (5, 4096, 8), (511, 27, 64)]
-BLOCKS = [(128, 128, 128), (64, 32, 256)]
+                   (200, 64, 1000), (5, 4096, 8), (511, 27, 64),
+                   (300, 147, 64)]
+BLOCKS = [(128, 128, 128), (64, 64, 256)]
 PATHS = [("resnet18@224", "resnet18", {"res": 224}, 4),
          ("transformer", "transformer", {}, 1)]
 
@@ -80,8 +92,9 @@ def bound(shapes) -> tuple:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, after one
-    warm-up, by CUDA events."""
+    """Mean time of ``fn()`` over ``reps`` runs issued from Python, after
+    one warm-up, by CUDA events: the device's time, or the host's when
+    the host issues slower than the device runs."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -93,6 +106,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()``: ``reps`` calls captured in one CUDA
+    graph (after a warm-up on a side stream), the graph replayed 3 times
+    between CUDA events.  The host's launch cost is out of the window;
+    each call's device work runs in order, as issued."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def device_profile(fn, top: int = 5):
@@ -196,13 +237,38 @@ def main() -> int:
                           dtype=torch.int8).to(dev)
         w = torch.randint(-128, 128, (k, n), generator=rng,
                           dtype=torch.int8).to(dev)
+        full_k = -(-k // bsm.BK) * bsm.BK
+        forced = [(None, None, None)] + BLOCKS + [
+            (bm, bn, bk) for bm, bn in bsm.TILES for bk in (bsm.BK, full_k)]
         for act_bits in (4, 6, 8):
             for signed in (True, False):
-                for bm, bn, bk in BLOCKS:
+                for bm, bn, bk in forced:
                     compare(a, w, act_bits=act_bits, signed=signed,
                             block_m=bm, block_n=bn, block_k=bk)
-    log(f"kernel == plain on {n_cmp} CPU-test cases "
-        f"(act_bits 4/6/8, signed both ways, blocks {BLOCKS})")
+    log(f"kernel == plain on {n_cmp} CPU-test cases (act_bits 4/6/8, "
+        f"signed both ways; chooser, tiles {list(bsm.TILES)} with one "
+        f"and the most K slices, blocks {BLOCKS})")
+    try:
+        bsm.bitserial_mvm(a[:64, :64].contiguous(), w[:64, :32].contiguous(),
+                          block_m=64, block_n=32, block_k=64)
+    except ValueError as e:
+        log(f"tile (64,32) refused: {e}")
+    else:
+        raise AssertionError("a tile the kernel lacks was not refused")
+
+    # int32 wrap-around: K*16384 = 2^31 + 16384 wraps to -2^31 + 16384
+    k = (1 << 17) + 1
+    a = torch.full((2, k), -128, dtype=torch.int8, device=dev)
+    w = torch.full((k, 3), -128, dtype=torch.int8, device=dev)
+    wrapped = (k * 16384 + 2**31) % 2**32 - 2**31
+    for blocks in ((None, None, None), (16, 64, -(-k // bsm.BK) * bsm.BK)):
+        kw = dict(zip(("block_m", "block_n", "block_k"), blocks))
+        compare(a, w, **kw)
+        got = cim_mvm(a, w, **kw)
+        if not bool((got == wrapped).all()):
+            raise AssertionError(f"wrap-around {blocks}: {got.tolist()}")
+    log(f"int32 wrap-around (K = {k}) exact with split K "
+        f"{bsm.choose_blocks(2, 3, k)} and one K slice")
 
     # 3. the main path, counted -----------------------------------------------
     chip = default_chip()
@@ -316,34 +382,76 @@ def main() -> int:
         f"(max |err| {max_err})")
 
     # 5b. per-MVM times ------------------------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     by_shape = {}
     for label, a, m in recorded:
         key = (label, a.shape[0], a.shape[1], m.shape[1])
         by_shape.setdefault(key, [a, m, 0])[2] += 1
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    log("path  M  K  N  count  kernel_ms  plain_ms  bound_ms  bound_by  "
-        "int_mm_ms")
+    # Device time (graph_ms) is each call's own; issued time (cuda_ms,
+    # "_issued") adds what the host spends launching it.
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "ms_issued",
+                         "plain_ms_issued", "library_ms_issued"), 0.0)
+    tot["best_ms"] = 0.0
+
+    def sweep_blocks(a, m):
+        """``(block_m, block_n, split, ms)`` of the fastest tile and K
+        split for these operands, over every tile and every distinct
+        split; each configuration's result must equal the chooser's."""
+        k = a.shape[1]
+        want = cim_mvm(a, m)
+        steps = -(-k // bsm.BK)
+        pers = sorted({-(-steps // s) for s in range(1, steps + 1)})
+        best = None
+        for tbm, tbn in bsm.TILES:
+            for per in pers:
+                kw = dict(block_m=tbm, block_n=tbn, block_k=per * bsm.BK)
+                if not torch.equal(cim_mvm(a, m, **kw), want):
+                    raise AssertionError(f"{tuple(a.shape)}x{tuple(m.shape)}"
+                                         f" {kw} differs from the chooser's")
+                t = graph_ms(lambda: cim_mvm(a, m, **kw), REPS)
+                if best is None or t < best[3]:
+                    best = (tbm, tbn, -(-steps // per), t)
+        return best
+    log("path  M  K  N  count  tile  split  kernel_ms  plain_ms  bound_ms  "
+        "bound_by  int_mm_ms  kernel/bound  |  issued: kernel_ms  "
+        "int_mm_ms  |  best of all: tile split kernel_ms")
     for (label, mm, kk, nn), (a, m, count) in by_shape.items():
-        k_ms = cuda_ms(lambda: cim_mvm(a, m), REPS)
-        p_ms = cuda_ms(lambda: bitserial_mvm_ref(a, m), REPS)
         ia, iw = int_mm_operands(a, m)
-        l_ms = cuda_ms(lambda: torch._int_mm(ia, iw), REPS)
+        fns = {"ms": lambda: cim_mvm(a, m),
+               "plain_ms": lambda: bitserial_mvm_ref(a, m),
+               "library_ms": lambda: torch._int_mm(ia, iw)}
         b_ms, b_by = bound([(mm, kk, nn)])
+        bm, bn, bk = bsm.choose_blocks(mm, nn, kk, sms)
+        split = -(-kk // bk)
         row = {"path": label, "M": mm, "K": kk, "N": nn, "count": count,
-               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": l_ms}
+               "tile": [bm, bn], "block_k": bk, "split": split,
+               "bound_ms": b_ms, "bound_by": b_by}
+        for key, fn in fns.items():
+            row[key] = graph_ms(fn, REPS)
+            row[key + "_issued"] = cuda_ms(fn, REPS)
+        best = sweep_blocks(a, m)
+        row["best"] = {"tile": list(best[:2]), "split": best[2],
+                       "ms": best[3]}
         report["shapes"].append(row)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                       ("library_ms", l_ms)):
-            tot[key] += count * v
-        log(f"{label} {mm} {kk} {nn} {count} {k_ms:.4f} {p_ms:.4f} "
-            f"{b_ms:.6f} {row['bound_by']} {l_ms:.4f}")
+        for key in fns:
+            tot[key] += count * row[key]
+            tot[key + "_issued"] += count * row[key + "_issued"]
+        tot["best_ms"] += count * best[3]
+        log(f"{label} {mm} {kk} {nn} {count} {bm}x{bn} {split} "
+            f"{row['ms']:.4f} {row['plain_ms']:.4f} {b_ms:.6f} {b_by} "
+            f"{row['library_ms']:.4f} {row['ms'] / b_ms:.0f}  |  "
+            f"{row['ms_issued']:.4f} {row['library_ms_issued']:.4f}  |  "
+            f"{best[0]}x{best[1]} {best[2]} {best[3]:.4f}")
     tot["bound_ms"], bound_all_by = bound(
         [(a.shape[0], a.shape[1], m.shape[1]) for _, a, m in recorded])
-    log(f"sum over the main path's {len(recorded)} MVMs: kernel "
-        f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+    report["totals"] = tot
+    log(f"sum over the main path's {len(recorded)} MVMs, device time: "
+        f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
         f"{tot['bound_ms']:.4f} ms, torch._int_mm {tot['library_ms']:.3f} "
-        f"ms [{card}]")
+        f"ms; issued from Python: kernel {tot['ms_issued']:.3f} ms, plain "
+        f"{tot['plain_ms_issued']:.3f} ms, torch._int_mm "
+        f"{tot['library_ms_issued']:.3f} ms; the best tile and split of "
+        f"each shape: kernel {tot['best_ms']:.3f} ms [{card}]")
 
     kernels = [{
         "name": "bitserial_mvm",

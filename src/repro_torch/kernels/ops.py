@@ -1,9 +1,10 @@
 """Public wrappers around the CIM kernels.
 
-* :func:`cim_mvm` — the bit-serial kernel with automatic zero-padding to
-  its blocks (exact for integer arithmetic).  Dispatch is by the
-  tensors' device: CUDA launches the hand-written kernel, CPU runs its
-  plain version.
+* :func:`cim_mvm` — the bit-serial kernel on ragged shapes.  Dispatch is
+  by the tensors' device: CUDA launches the hand-written kernel on the
+  unpadded operands (it masks ragged edges itself); CPU zero-pads to the
+  blocks, as the JAX wrapper does (exact for integer arithmetic), and
+  runs the plain version.
 
 Counterpart of :mod:`repro.kernels.ops`; ``int8_matmul`` and
 ``quantized_linear`` come with the quantization/models slice.
@@ -11,11 +12,11 @@ Counterpart of :mod:`repro.kernels.ops`; ``int8_matmul`` and
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
-from .bitserial_mvm import bitserial_mvm
+from .bitserial_mvm import bitserial_mvm, bitserial_mvm_cuda, resolve_blocks
 
 __all__ = ["cim_mvm", "pad_to"]
 
@@ -31,13 +32,27 @@ def pad_to(a: torch.Tensor, mults: Sequence[int]) -> torch.Tensor:
 
 
 def cim_mvm(x: torch.Tensor, w: torch.Tensor, *, act_bits: int = 8,
-            block_m: int = 128, block_n: int = 128, block_k: int = 128,
+            block_m: Optional[int] = None, block_n: Optional[int] = None,
+            block_k: Optional[int] = None,
             signed: bool = True) -> torch.Tensor:
-    """Bit-serial CIM MVM, ragged shapes welcome: int8 x int8 -> int32."""
-    m, _ = x.shape
-    _, n = w.shape
-    xp = pad_to(x.to(torch.int8), (block_m, block_k))
-    wp = pad_to(w.to(torch.int8), (block_k, block_n))
-    out = bitserial_mvm(xp, wp, act_bits=act_bits, block_m=block_m,
-                        block_n=block_n, block_k=block_k, signed=signed)
+    """Bit-serial CIM MVM, ragged shapes welcome: int8 x int8 -> int32.
+
+    Blocks left ``None`` are chosen from the shape
+    (``repro_torch.kernels.bitserial_mvm.choose_blocks``)."""
+    if x.dtype != torch.int8:
+        x = x.to(torch.int8)
+    if w.dtype != torch.int8:
+        w = w.to(torch.int8)
+    if x.is_cuda:
+        return bitserial_mvm_cuda(x.contiguous(), w.contiguous(),
+                                  act_bits=act_bits, signed=signed,
+                                  block_m=block_m, block_n=block_n,
+                                  block_k=block_k)
+    m, k = x.shape
+    n = w.shape[1]
+    bm, bn, bk = resolve_blocks(m, n, k, (block_m, block_n, block_k))
+    xp = pad_to(x, (bm, bk))
+    wp = pad_to(w, (bk, bn))
+    out = bitserial_mvm(xp, wp, act_bits=act_bits, block_m=bm,
+                        block_n=bn, block_k=bk, signed=signed)
     return out[:m, :n]

@@ -18,6 +18,7 @@ from repro.core.ref import quantize as j_quantize
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import bitserial_mvm as bsm
 from repro_torch.kernels.bitserial_mvm import bitserial_mvm
 
 RNG = np.random.default_rng(11)
@@ -25,6 +26,16 @@ RNG = np.random.default_rng(11)
 ALIGNED = [(128, 128, 128), (256, 128, 384), (128, 512, 128)]
 RAGGED = [(1, 1, 1), (37, 100, 59), (128, 129, 130), (200, 64, 1000),
           (5, 4096, 8), (511, 27, 64)]
+# (M, K, N) of every MVM the main path launches: resnet18@224 batch 4
+# and the default transformer (PERF.md's per-shape table)
+MAIN_PATH = [(50176, 147, 64), (12544, 576, 64), (3136, 576, 128),
+             (3136, 1152, 128), (3136, 64, 128), (784, 1152, 256),
+             (784, 2304, 256), (784, 128, 256), (196, 2304, 512),
+             (196, 4608, 512), (196, 256, 512), (4, 512, 1000),
+             (128, 512, 512), (128, 512, 1024), (128, 1024, 512),
+             (128, 512, 2048), (128, 2048, 512), (128, 512, 32000)]
+DEEP_K = [(196, 4608, 512), (784, 2304, 256), (128, 2048, 512),
+          (128, 1024, 512), (128, 512, 512)]
 
 
 def _rand(m, k, n, lo=-128, hi=128):
@@ -168,3 +179,73 @@ def test_pad_to():
     np.testing.assert_array_equal(
         ops.pad_to(a, (2, 3)).numpy(),
         np.asarray(jops.pad_to(jnp.asarray(a.numpy()), (2, 3))))
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_PATH + RAGGED + ALIGNED)
+def test_chooser_legal(m, k, n):
+    """The tile/split chooser returns a configuration the kernel takes,
+    and no K slice is empty."""
+    bm, bn, bk = bsm.choose_blocks(m, n, k)
+    bsm.check_tile(bm, bn, bk)
+    split = -(-k // bk)
+    assert split >= 1 and (split - 1) * bk < k
+    assert split <= 65535 and -(-n // bn) <= 65535
+
+
+def test_chooser_small_m_takes_the_16_row_tile():
+    """M <= 16 always, and M <= 128 when no larger tile fills the card;
+    larger M keeps a 64-row tile, and a grid that fills the card with
+    big tiles keeps them (the LM head)."""
+    assert bsm.choose_blocks(4, 1000, 512)[:2] == (16, 64)
+    assert bsm.choose_blocks(4, 32000, 512)[:2] == (16, 64)
+    assert bsm.choose_blocks(1, 1, 1)[:2] == (16, 64)
+    assert bsm.choose_blocks(128, 512, 512, sms=132)[:2] == (16, 64)
+    assert bsm.choose_blocks(129, 64, 64, sms=132)[:2] == (64, 64)
+    assert bsm.choose_blocks(196, 512, 4608, sms=132)[:2] == (64, 64)
+    assert bsm.choose_blocks(128, 32000, 512, sms=132)[:2] == (128, 128)
+    assert bsm.choose_blocks(50176, 64, 147, sms=132)[:2] == (128, 64)
+
+
+@pytest.mark.parametrize("m,k,n", DEEP_K)
+def test_chooser_fills_the_card(m, k, n):
+    """Deep-K shapes with few output tiles split K to >= 132 blocks (one
+    for each H100 SM), or to one 64-deep step per block where K is too
+    shallow for that ((128,512) @ (512,512): 16 tiles x 8 steps)."""
+    bm, bn, bk = bsm.choose_blocks(m, n, k, sms=132)
+    tiles = -(-m // bm) * -(-n // bn)
+    blocks = tiles * -(-k // bk)
+    assert blocks >= min(132, tiles * -(-k // bsm.BK))
+    assert blocks >= 128
+
+
+@pytest.mark.parametrize("blocks,ok", [
+    ((128, 128, 128), True), ((64, 64, 256), True), ((16, 64, 64), True),
+    ((64, 32, 256), False), ((8, 8, 4), False), ((128, 128, 96), False),
+    ((64, 64, 0), False)])
+def test_check_tile(blocks, ok):
+    if ok:
+        bsm.check_tile(*blocks)
+    else:
+        with pytest.raises(ValueError):
+            bsm.check_tile(*blocks)
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED)
+def test_cim_mvm_chosen_blocks_match_pallas(m, k, n):
+    """cim_mvm with default blocks (the chooser's) on ragged shapes: the
+    plain path, held to the JAX cim_mvm in interpret mode on the same
+    blocks."""
+    x, w = _rand(m, k, n)
+    bm, bn, bk = bsm.choose_blocks(m, n, k)
+    got = ops.cim_mvm(_t(x), _t(w))
+    assert tuple(got.shape) == (m, n)
+    want = np.asarray(jops.cim_mvm(jnp.asarray(x), jnp.asarray(w),
+                                   block_m=bm, block_n=bn, block_k=bk,
+                                   interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cuda_launcher_refuses_cpu_tensors():
+    x, w = _rand(16, 64, 16)
+    with pytest.raises(ValueError):
+        bsm.bitserial_mvm_cuda(_t(x), _t(w))
