@@ -42,7 +42,23 @@ script exits non-zero):
    fastest of every tile and K split on the same operands (each held
    equal to the chooser's result).
    ``--profile`` adds one ``torch.profiler`` trace of each path: the
-   device's busy share and its top kernels.
+   device's busy share and its top kernels;
+6. the simulate fidelity, on the paper's benchmark (resnet18@224,
+   batch 4, ``default_chip()``, ``strategy="dp"``) and the transformer
+   (batch 1): compile at ``fidelity="simulate"`` (codegen timed), run
+   the ISS with ``engine="vector"`` (numpy) and with its default
+   engine, ``"torch"`` (the stage decode as tensor code on the card),
+   and require identical cycles, stage_cycles, events, unit_busy and
+   instrs, and every stage of every torch run decoded by one pass on
+   the card (none left to the scalar interpreter); split the vector
+   engine's time into decode and replay and the torch engine's into
+   the stage passes' device ms (CUDA events), the host<->device copy
+   ms and the host finish s; record peak device memory.  On resnet18,
+   evaluate 16 chips that differ only in timing constants with
+   ``FleetEvaluator`` (one batched decode per stage, each on the card)
+   and require each payload to equal that chip's own
+   ``engine="vector"`` run, timed against that loop; evaluate the
+   trace backend once.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record and
 the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -71,6 +87,8 @@ CPU_TEST_SHAPES = [(128, 128, 128), (256, 128, 384), (128, 512, 128),
 BLOCKS = [(128, 128, 128), (64, 64, 256)]
 PATHS = [("resnet18@224", "resnet18", {"res": 224}, 4),
          ("transformer", "transformer", {}, 1)]
+N_FLEET = 16                  # timing variants in the fleet phase
+REPS_SIM = 3                  # timed runs of each simulate engine
 
 
 def log(*a):
@@ -164,6 +182,219 @@ def int_mm_operands(a, w):
     if ap.shape[0] <= 16:
         ap = pad_to(ap, (32, 1))
     return ap, pad_to(w, (8, 8))
+
+
+def timing_chips(base, n: int) -> list:
+    """``n`` chips with ``base``'s structure and different timing
+    constants (scalar/vector/CIM latencies, weight-load rate, router
+    latency, clock): one compiled program serves them all."""
+    import dataclasses as dc
+    return [dc.replace(
+        base,
+        core=dc.replace(
+            base.core,
+            scalar=dc.replace(base.core.scalar, alu_latency=1 + i % 3,
+                              ldst_latency=2 + i % 2),
+            vector=dc.replace(base.core.vector, alu_latency=1 + i % 4,
+                              mul_latency=2 + i % 3),
+            cim=dc.replace(base.core.cim,
+                           weight_load_rows_per_cycle=1 + i % 4)),
+        noc=dc.replace(base.noc, router_latency=1 + i % 3),
+        clock_ghz=1.0 + 0.2 * i, name=f"t{i}") for i in range(n)]
+
+
+def best_of(fn, reps: int = REPS_SIM, keep=None):
+    """``(s, result)``: the least host wall time of ``reps`` runs of
+    ``fn()`` and the last result (also appended to ``keep``)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    if keep is not None:
+        keep.append(out)
+    return best, out
+
+
+def same_report(a, b) -> bool:
+    return (a.cycles == b.cycles and a.stage_cycles == b.stage_cycles
+            and a.events == b.events and a.unit_busy == b.unit_busy
+            and a.instrs == b.instrs)
+
+
+def simulate_phase(paths, n_fleet: int, device=None) -> dict:
+    """Phase 6: the simulate fidelity, torch engine against the numpy
+    vector engine on each path, the fleet against a loop of single
+    runs and the trace backend on the first path.  ``device`` is where
+    the torch engine runs (the card unless named).  Raises on any
+    mismatch; returns the measurements."""
+    import torch
+    from repro_torch import flow
+    from repro_torch.core import torchsim, vectorsim
+    from repro_torch.core.arch import default_chip
+    from repro_torch.core.mapping import CostParams
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.explore import FleetEvaluator
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    chip = default_chip()
+    out = {}
+    for i, (label, model, kw, batch) in enumerate(paths):
+        opts = flow.CompileOptions(strategy="dp", workload_kw=kw or None,
+                                   params=CostParams(batch=batch),
+                                   fidelity="simulate")
+        t0 = time.perf_counter()
+        art = flow.compile(model, chip, opts)
+        row = {"compile_s": time.perf_counter() - t0,
+               "codegen_s": art.pass_record("codegen").wall_s}
+        cm = art.model
+        row["stage_instrs"] = [s.total_instrs for s in cm.stages]
+        log(f"simulate {label}: compile {row['compile_s']:.2f} s (codegen "
+            f"{row['codegen_s']:.2f} s), {cm.total_instrs} instructions "
+            f"in {len(cm.stages)} stages {row['stage_instrs']}")
+
+        # the numpy vector engine: the entry point, then its two halves
+        vsim = Simulator(chip, cm.isa, engine="vector")
+        row["vector_s"], vrep = best_of(lambda: vsim.run_model(cm))
+        dec = vectorsim.StageDecoder(cm.isa, vsim.m)
+        decoded = []
+        row["vector_decode_s"] = sum(best_of(
+            lambda sp=sp: dec.decode_stage(sp.programs), keep=decoded)[0]
+            for sp in cm.stages)
+        row["vector_replay_s"] = sum(best_of(
+            lambda sp=sp, ds=ds: vectorsim.replay_stage(vsim, sp, ds))[0]
+            for sp, ds in zip(cm.stages, decoded))
+
+        # the torch engine on the card: a first run, then timed ones,
+        # each with its decode split into device / copy / host time
+        tsim = Simulator(chip, cm.isa, device=device)   # engine "torch"
+        t0 = time.perf_counter()
+        first = tsim.run_model(cm)
+        row["torch_first_s"] = time.perf_counter() - t0
+        tdec = torchsim.decoder_for(tsim)
+        if tsim.engine != "torch" or tdec.fallbacks:
+            raise AssertionError(f"simulate {label}: engine {tsim.engine},"
+                                 f" {tdec.fallbacks} stages not decoded "
+                                 f"on the device")
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(REPS_SIM):
+            tdec.timing, tdec.fallbacks = torchsim.StageTiming(), 0
+            t0 = time.perf_counter()
+            trep = tsim.run_model(cm)
+            runs.append((time.perf_counter() - t0, tdec.timing.as_dict(),
+                         trep))
+            # every stage went through one pass on the device
+            if tdec.fallbacks or tdec.timing.calls != len(cm.stages):
+                raise AssertionError(
+                    f"simulate {label}: {tdec.timing.calls} stage passes "
+                    f"for {len(cm.stages)} stages, {tdec.fallbacks} to "
+                    f"the scalar interpreter")
+        row["torch_s"], row["torch_decode"], trep = min(
+            runs, key=lambda r: r[0])
+        row["fallback_stages"] = tdec.fallbacks
+        row["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                             if cuda else None)
+        for name, rep in [("first torch run", first)] + [
+                ("torch", r[2]) for r in runs]:
+            if not same_report(rep, vrep):
+                raise AssertionError(
+                    f"simulate {label}: {name} != vector: cycles "
+                    f"{rep.cycles} vs {vrep.cycles}, instrs {rep.instrs} "
+                    f"vs {vrep.instrs}")
+        ev = art.evaluate("simulate", device=device)
+        jv = art.evaluate("simulate", engine="vector")
+        if (ev.cycles, ev.energy) != (jv.cycles, jv.energy):
+            raise AssertionError(f"simulate {label}: backend torch != "
+                                 f"vector")
+        if not (0 < trep.cycles < float("inf") and trep.instrs > 0):
+            raise AssertionError(f"simulate {label}: {trep.cycles} "
+                                 f"cycles, {trep.instrs} instrs")
+        td = row["torch_decode"]
+        row["torch_decode_s"] = (td["prep_s"] + td["finish_s"]
+                                 + (td["h2d_ms"] + td["pass_ms"]
+                                    + td["d2h_ms"]) / 1e3)
+        log(f"simulate {label}: torch == vector ({trep.cycles:.0f} cycles, "
+            f"{trep.instrs} instrs, {ev.energy_total / 1e6:.3f} mJ); "
+            f"best of {REPS_SIM}: vector {row['vector_s']:.3f} s (decode "
+            f"{row['vector_decode_s']:.3f} s, replay "
+            f"{row['vector_replay_s']:.3f} s); torch {row['torch_s']:.3f} s "
+            f"(first run {row['torch_first_s']:.3f} s), its decode "
+            f"{row['torch_decode_s']:.3f} s: host prep "
+            f"{td['prep_s']:.3f} s, stage passes "
+            f"{td['pass_ms']:.3f} ms device, copies h2d {td['h2d_ms']:.3f} "
+            f"+ d2h {td['d2h_ms']:.3f} ms, host finish "
+            f"{td['finish_s']:.3f} s; {row['fallback_stages']} stages to "
+            f"the scalar interpreter; peak device memory "
+            f"{row['peak_bytes']} B")
+
+        if i == 0:
+            # the fleet: one batched decode per stage for n_fleet chips,
+            # through the entry point (its own codegen included) and on
+            # the model compiled above, against a loop of single runs
+            chips = timing_chips(chip, n_fleet)
+            fe = FleetEvaluator(art.cg, params=CostParams(batch=batch),
+                                device=device)
+            t0 = time.perf_counter()
+            payloads = fe.evaluate([(c, "dp") for c in chips])
+            row["fleet_entry_s"] = time.perf_counter() - t0
+            # the fleet's decode and replay alone: its per-model half on
+            # the model compiled above, twice
+            fleet_timing = torchsim.StageTiming()
+            fe = FleetEvaluator(art.cg, params=CostParams(batch=batch),
+                                device=device, timing=fleet_timing)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            row["fleet_s"], again = best_of(lambda: fe._eval_model(
+                cm, chips, time.perf_counter()), reps=2)
+            row["fleet_decode"] = fleet_timing.as_dict()
+            if fleet_timing.calls != 2 * len(cm.stages):
+                raise AssertionError(
+                    f"fleet: {fleet_timing.calls} stage passes for 2 runs "
+                    f"of {len(cm.stages)} stages")
+            row["fleet_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                       if cuda else None)
+            row["loop_s"] = 0.0
+            for c, pl, pl2 in zip(chips, payloads, again):
+                dt, rep = best_of(lambda c=c: Simulator(
+                    c, cm.isa, engine="vector").run_model(cm), reps=2)
+                row["loop_s"] += dt
+                sps = cm.batch / (rep.cycles / (c.clock_ghz * 1e9))
+                for got in (pl, pl2):
+                    if (got.get("error") or got["cycles"] != rep.cycles
+                            or got["energy"] != dict(rep.energy())
+                            or got["throughput_sps"] != sps):
+                        raise AssertionError(
+                            f"fleet != single run on {c.name}: {got} vs "
+                            f"{rep.cycles}")
+            fd = row["fleet_decode"]
+            log(f"fleet of {n_fleet} == {n_fleet} single vector runs; "
+                f"FleetEvaluator.evaluate {row['fleet_entry_s'] / n_fleet:.3f}"
+                f" s per chip (its codegen included); on the compiled model "
+                f"(best of 2) {row['fleet_s'] / n_fleet:.3f} s per chip "
+                f"(prep {fd['prep_s'] / 2:.3f} s, stage passes "
+                f"{fd['pass_ms'] / 2:.3f} ms device, copies "
+                f"{(fd['h2d_ms'] + fd['d2h_ms']) / 2:.3f} ms, finish "
+                f"{fd['finish_s'] / 2:.3f} s a run), loop of vector runs "
+                f"{row['loop_s'] / n_fleet:.3f} s per chip; peak device "
+                f"memory {row['fleet_peak_bytes']} B; cycles "
+                f"{min(p['cycles'] for p in payloads):.0f}.."
+                f"{max(p['cycles'] for p in payloads):.0f}")
+
+            t0 = time.perf_counter()
+            tr = flow.compile(model, chip, opts.replace(
+                fidelity="trace")).evaluate()
+            row["trace_s"] = time.perf_counter() - t0
+            row["trace_cycles"] = tr.cycles
+            if not (tr.backend == "trace" and 0 < tr.cycles < float("inf")
+                    and tr.energy_total > 0):
+                raise AssertionError(f"trace {label}: {tr.summary()}")
+            log(f"trace {label}: {tr.summary()} in {row['trace_s']:.3f} s "
+                f"(simulate: {trep.cycles:.0f} cycles)")
+        out[label] = row
+    return out
 
 
 def main() -> int:
@@ -452,6 +683,10 @@ def main() -> int:
         f"{tot['plain_ms_issued']:.3f} ms, torch._int_mm "
         f"{tot['library_ms_issued']:.3f} ms; the best tile and split of "
         f"each shape: kernel {tot['best_ms']:.3f} ms [{card}]")
+
+    # 6. the simulate fidelity: torch engine, fleet, trace --------------------
+    report["simulate"] = simulate_phase(PATHS, N_FLEET)
+    log(f"simulate phase done [{card}]")
 
     kernels = [{
         "name": "bitserial_mvm",

@@ -5,15 +5,19 @@ it.  The module layout mirrors ``repro`` so each counterpart is easy to
 find:
 
 * :mod:`repro_torch.core` — the host IR and compiler passes (graph,
-  workloads, arch, machine, mapping, partition), the integer vector
-  semantics (:mod:`~repro_torch.core.vecsem`) and the functional oracle
-  on tensors (:mod:`~repro_torch.core.ref`);
+  workloads, arch, machine, mapping, partition, oplevel, codegen), the
+  simulators (the ISS, the numpy ``vectorsim`` engine, ``trace``), the
+  integer vector semantics (:mod:`~repro_torch.core.vecsem`), the
+  functional oracle on tensors (:mod:`~repro_torch.core.ref`) and the
+  stage decode on tensors (:mod:`~repro_torch.core.torchsim`);
 * :mod:`repro_torch.kernels` — the bit-serial CIM MVM as a hand-written
   CUDA kernel for ``sm_90a`` (:mod:`~repro_torch.kernels.bitserial_mvm`)
   beside its plain PyTorch version (:mod:`~repro_torch.kernels.ref`);
 * :mod:`repro_torch.flow` — ``compile(workload, chip, options)`` ->
-  ``Artifact.evaluate(backend)`` with the ``analytic`` and
-  ``func:torch`` backends;
+  ``Artifact.evaluate(backend)`` with the ``analytic``, ``trace``,
+  ``simulate``/``perf``, ``func`` and ``func:torch`` backends;
+* :mod:`repro_torch.explore` — :class:`~repro_torch.explore.
+  FleetEvaluator`, one compiled program under many chips' timing;
 * :mod:`repro_torch.convert` — carries the JAX package's numpy
   weights/inputs/quantization across as tensors.
 

@@ -22,15 +22,14 @@ sample.  The semantics are the reference's:
 
 The MVM is swappable (``matmul``): the ``func:torch`` backend runs it on
 the bit-serial CUDA kernel; the default is the exact plain contraction.
-Also carries the port's copies of ``QuantParams`` and the group-routing
-helpers of :mod:`repro.core.codegen`.
+``QuantParams`` and the group-routing helpers come from
+:mod:`repro_torch.core.codegen`, as the reference's come from its codegen.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +37,8 @@ import torch
 from ..device import resolve_device
 from ..kernels.ref import mvm_ref
 from . import vecsem
-from .graph import CondensedGraph, Group
+from .codegen import QuantParams, _main_and_skip_preds, _weight_pred
+from .graph import CondensedGraph
 
 __all__ = ["QuantParams", "conv_weight_matrix", "dwconv_weight_matrix",
            "im2col", "quantize", "run_reference", "auto_quant",
@@ -47,51 +47,6 @@ __all__ = ["QuantParams", "conv_weight_matrix", "dwconv_weight_matrix",
 # the INT8 x INT8 -> INT32 contraction ``(M, K) int8, (K, N) int8 ->
 # (M, N) int32``
 MatmulFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-@dataclass(frozen=True)
-class QuantParams:
-    """Fixed-point requant: out = clip(rnd(acc*scale / (div*2^shift)), i8)."""
-
-    scale: int = 1
-    shift: int = 8
-
-    def __post_init__(self):
-        if not 0 < self.scale < (1 << 15):
-            raise ValueError(f"q-scale {self.scale} out of imm16 range")
-        if not 0 <= self.shift < 31:
-            raise ValueError(f"q-shift {self.shift} out of range")
-
-
-def _weight_pred(cg: CondensedGraph, g: Group,
-                 op_owner: Dict[int, int]) -> Optional[int]:
-    """Weight-producer group of a dynamic-weight anchor (None for static
-    groups and for dynamic weights sourced from the graph input)."""
-    if not g.dynamic_weights or g.anchor is None or cg.source is None:
-        return None
-    anchor = cg.source.ops[g.anchor]
-    if len(anchor.inputs) < 2:
-        return None
-    return op_owner.get(anchor.inputs[1])
-
-
-def _main_and_skip_preds(cg: CondensedGraph, g: Group,
-                         op_owner: Dict[int, int]) -> Tuple[Optional[int],
-                                                            List[int]]:
-    """Main (im2col source) pred group vs side (residual) pred groups.
-
-    A dynamic-weight anchor's second input is its *weight* operand, not
-    a residual — it is excluded here and routed by the weight path."""
-    main: Optional[int] = None
-    if g.anchor is not None and cg.source is not None:
-        src_op = cg.source.ops[g.anchor].inputs[0]
-        main = op_owner.get(src_op)      # None => graph input
-    elif g.preds:
-        main = g.preds[0]
-    wp = _weight_pred(cg, g, op_owner)
-    side = [p for p in g.preds if p != main
-            and not (g.dynamic_weights and p == wp)]
-    return main, side
 
 
 def conv_weight_matrix(kernel: np.ndarray) -> np.ndarray:

@@ -10,6 +10,7 @@ Counterpart of :mod:`repro.flow`::
                                            workload_kw={"res": 224}))
     print(art.describe())                 # instrumented pass trace
     art.evaluate("analytic")              # cost model
+    art.evaluate("simulate")              # ISS, decode on the card
     art.evaluate("func:torch")            # INT8 oracle on the CUDA kernel
 
 * :class:`CompileOptions` — strategy / batch / quant / strict_lmem /
@@ -17,17 +18,19 @@ Counterpart of :mod:`repro.flow`::
 * :class:`Pass` + :func:`register_pass` — partition strategies plug in
   as ``partition:<name>`` passes.
 * :class:`Pipeline` — runs the pass chain behind an LRU output cache.
-* :class:`Backend` + :func:`register_backend` — the analytic cost model
-  and the ``func:torch`` oracle behind ``Artifact.evaluate``.
+* :class:`Backend` + :func:`register_backend` — the analytic cost
+  model, the trace replay, the ISS simulator and the ``func:torch``
+  oracle behind ``Artifact.evaluate``.
 """
 
 from ..core.machine import Calibration, MachineModel, machine_for
 from .backends import (BACKENDS, AnalyticBackend, Backend, EvalReport,
-                       TorchFuncBackend, backend_for_fidelity,
-                       register_backend, resolve_backend)
+                       SimulatorBackend, TorchFuncBackend, TraceBackend,
+                       backend_for_fidelity, register_backend,
+                       resolve_backend)
 from .options import FIDELITIES, CompileOptions
-from .passes import (PASS_REGISTRY, CondensePass, Pass, PartitionPass,
-                     PassRecord, PipelineContext, get_pass,
+from .passes import (PASS_REGISTRY, CodegenPass, CondensePass, Pass,
+                     PartitionPass, PassRecord, PipelineContext, get_pass,
                      partition_pass_name, register_pass)
 from .pipeline import (Artifact, Pipeline, compile, compile_many,
                        default_pipeline, workload_fingerprint)
@@ -37,8 +40,9 @@ __all__ = [
     "Artifact", "Pipeline", "default_pipeline", "workload_fingerprint",
     "Pass", "PassRecord", "PipelineContext", "PASS_REGISTRY",
     "register_pass", "get_pass", "partition_pass_name",
-    "CondensePass", "PartitionPass",
-    "Backend", "EvalReport", "AnalyticBackend", "TorchFuncBackend",
+    "CondensePass", "PartitionPass", "CodegenPass",
+    "Backend", "EvalReport", "AnalyticBackend", "TraceBackend",
+    "SimulatorBackend", "TorchFuncBackend",
     "BACKENDS", "register_backend", "resolve_backend",
     "backend_for_fidelity",
     "Calibration", "MachineModel", "machine_for",

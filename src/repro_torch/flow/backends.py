@@ -5,14 +5,20 @@ compiled artifact into an :class:`EvalReport`:
 
 * :class:`AnalyticBackend` — the mapping cost model's stage latencies
   and energy-event ledger (no codegen).
+* :class:`TraceBackend` (``"trace"``) — replays each StagePlan at
+  unit/transfer granularity on :class:`~repro_torch.core.trace.
+  TraceEngine` (no codegen).
+* :class:`SimulatorBackend` (``"simulate"``/``"perf"``, ``"func"``) —
+  runs the per-core ISA streams on the cycle-accurate simulator or the
+  functional ISS; in perf mode each stage decodes as tensor code on
+  the card by default (``engine="torch"``).
 * :class:`TorchFuncBackend` (``"func:torch"``) — the INT8 functional
   oracle with every MVM on the hand-written bit-serial CUDA kernel; the
   counterpart of the JAX package's ``"func:pallas"``.
 
-Backends resolve by name through :data:`BACKENDS`.  The trace backend
-and the ISS simulator backends (``"trace"``, ``"simulate"``/``"perf"``,
-``"func"``) are not ported yet; naming one raises
-:class:`NotImplementedError`.
+Backends resolve by name through :data:`BACKENDS`.  Naming
+``"func:pallas"`` raises :class:`NotImplementedError` and points at
+``"func:torch"``.
 """
 
 from __future__ import annotations
@@ -27,11 +33,13 @@ import torch
 from ..convert import from_reference
 from ..core import ref
 from ..core.machine import machine_for
+from ..core.simulator import ENGINES, SimReport, Simulator
+from ..core.trace import TraceEngine, TraceReport
 from ..device import resolve_device
 from ..kernels.ops import cim_mvm
 
-__all__ = ["EvalReport", "Backend", "AnalyticBackend", "TorchFuncBackend",
-           "BACKENDS", "resolve_backend", "register_backend",
+__all__ = ["EvalReport", "Backend", "AnalyticBackend", "TraceBackend",
+           "SimulatorBackend", "TorchFuncBackend", "BACKENDS", "resolve_backend", "register_backend",
            "backend_for_fidelity"]
 
 
@@ -45,6 +53,8 @@ class EvalReport:
     throughput_sps: float          # samples/s at the chip clock
     batch: int
     wall_s: float = 0.0
+    sim: Optional[SimReport] = None     # simulator backends only
+    trace: Optional[TraceReport] = None  # trace backend only
     outputs: Optional[Dict[int, np.ndarray]] = None  # func oracles only
 
     @property
@@ -97,6 +107,80 @@ class AnalyticBackend(Backend):
             backend=self.name, cycles=cycles, energy=energy,
             throughput_sps=_throughput(artifact.chip, cycles, batch),
             batch=batch, wall_s=time.perf_counter() - t0)
+
+
+class TraceBackend(Backend):
+    """StagePlan replay on the shared machine model (middle fidelity)."""
+
+    name = "trace"
+
+    def evaluate(self, artifact: Any, **kw: Any) -> EvalReport:
+        if kw:
+            raise TypeError(f"trace backend takes no extra arguments, "
+                            f"got {sorted(kw)}")
+        t0 = time.perf_counter()
+        batch = artifact.options.resolved_batch()
+        engine = TraceEngine(artifact.chip,
+                             artifact.options.calibration)
+        rep = engine.run(artifact.partition, batch)
+        return EvalReport(
+            backend=self.name, cycles=float(rep.cycles),
+            energy=dict(rep.energy()),
+            throughput_sps=_throughput(artifact.chip, rep.cycles, batch),
+            batch=batch, wall_s=time.perf_counter() - t0, trace=rep)
+
+
+class SimulatorBackend(Backend):
+    """Cycle-accurate (``perf``) / functional ISS (``func``) execution.
+
+    ``engine`` selects the perf-mode execution path: ``"auto"``
+    (default) is ``"torch"``, the stage decode as tensor code on
+    ``device`` (CUDA unless named; raises without a card), with the
+    scalar interpreter for stages outside the decodable subset;
+    ``"vector"`` (numpy, no fallback) and ``"scalar"`` (the
+    interpreter) are the host engines.  All are cycle- and
+    event-identical; ``engine=...`` and ``device=...`` on ``evaluate``
+    override per call.
+    """
+
+    def __init__(self, mode: str = "perf", name: Optional[str] = None,
+                 engine: str = "auto") -> None:
+        if mode not in ("perf", "func"):
+            raise ValueError(f"mode must be 'perf' or 'func', "
+                             f"got {mode!r}")
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, "
+                             f"got {engine!r}")
+        self.mode = mode
+        self.engine = engine
+        self.name = name or ("simulate" if mode == "perf" else "func")
+
+    def evaluate(self, artifact: Any,
+                 gmem_image: Optional[np.ndarray] = None,
+                 engine: Optional[str] = None,
+                 faults: Optional[Any] = None,
+                 device: Union[str, torch.device, None] = None,
+                 **kw: Any) -> EvalReport:
+        if kw:
+            raise TypeError(f"simulator backend takes only gmem_image, "
+                            f"engine, faults and device, got {sorted(kw)}")
+        if faults is not None:
+            raise NotImplementedError(
+                "the simulator does not inject faults yet (the faults "
+                "slice); pass faults=None")
+        t0 = time.perf_counter()
+        model = artifact.ensure_model()
+        # the engine passes through unchanged: Simulator itself rejects
+        # func+vector and unknown engines
+        sim = Simulator(artifact.chip, model.isa, mode=self.mode,
+                        engine=engine or self.engine, device=device)
+        rep = sim.run_model(model, gmem_image=gmem_image)
+        batch = model.batch
+        return EvalReport(
+            backend=self.name, cycles=float(rep.cycles),
+            energy=dict(rep.energy()),
+            throughput_sps=_throughput(artifact.chip, rep.cycles, batch),
+            batch=batch, wall_s=time.perf_counter() - t0, sim=rep)
 
 
 class TorchFuncBackend(Backend):
@@ -167,10 +251,8 @@ class TorchFuncBackend(Backend):
 
 BACKENDS: Dict[str, Backend] = {}
 
-# backends of the JAX package that later slices of the port bring
-_NOT_PORTED = {"trace": "the trace slice", "simulate": "the simulator slice",
-               "perf": "the simulator slice", "func": "the simulator slice",
-               "func:pallas": "'func:torch' is its counterpart"}
+# backends of the JAX package the port names differently
+_NOT_PORTED = {"func:pallas": "'func:torch' is its counterpart"}
 
 
 def register_backend(b: Backend, *aliases: str,
@@ -183,6 +265,9 @@ def register_backend(b: Backend, *aliases: str,
 
 
 register_backend(AnalyticBackend())
+register_backend(TraceBackend())
+register_backend(SimulatorBackend("perf"), "perf")
+register_backend(SimulatorBackend("func"))
 register_backend(TorchFuncBackend())
 
 

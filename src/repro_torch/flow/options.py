@@ -19,14 +19,14 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 from ..core.machine import Calibration
 from ..core.mapping import CostParams
-from ..core.ref import QuantParams
+from ..core.codegen import QuantParams
 
 __all__ = ["CompileOptions", "FIDELITIES"]
 
 # The fidelity ladder: "analytic" = closed-form cost model (no
 # codegen); "trace" = StagePlan replay at unit/transfer granularity;
 # "simulate" = perf-mode cycle-accurate run; "func" = functional ISS
-# (bit-exact data semantics).  The port evaluates "analytic" so far.
+# (bit-exact data semantics).
 FIDELITIES = ("analytic", "trace", "simulate", "func")
 
 
@@ -35,7 +35,7 @@ class CompileOptions:
     """Everything that determines a compile's outcome, in one record.
 
     ``batch=None`` falls back to ``params.batch``.  ``quant`` maps group
-    index to :class:`~repro_torch.core.ref.QuantParams`; it is
+    index to :class:`~repro_torch.core.codegen.QuantParams`; it is
     normalized to a sorted tuple so options hash/compare structurally.
     """
 
@@ -47,10 +47,10 @@ class CompileOptions:
     params: CostParams = field(default_factory=CostParams)
     workload_kw: Optional[Mapping[str, Any]] = None   # for str workloads
     dump_dir: Optional[str] = None    # per-pass JSON IR dumps (debugging)
-    # per-unit correction factors applied by the analytic backend at
-    # evaluation time; the partition search itself stays uncalibrated
-    # and cache-shared.  Named presets (a string) need the calibration
-    # slice.
+    # per-unit correction factors applied by the analytic and trace
+    # backends at evaluation time; the partition search itself stays
+    # uncalibrated and cache-shared.  Named presets (a string) need the
+    # calibration slice.
     calibration: Union[Calibration, str, None] = None
     # multi-chip scale-out (a SystemConfig) needs the system slice
     system: Optional[Any] = None

@@ -8,8 +8,9 @@ instrumented compilation step.  Passes declare which
 ``depends`` along the pass chain, so changing an option a pass never
 reads (e.g. ``fidelity``) reuses its cached output.
 
-Every partition strategy is registered as ``partition:<name>``.  The
-code-generation pass waits for the codegen slice of the port.
+Every partition strategy is registered as ``partition:<name>``; the
+code-generation pass (``codegen``) lowers a partition to per-core ISA
+streams on demand and is never cached.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 from ..core import workloads
+from ..core.codegen import CompiledModel, _compile_model
 from ..core.graph import CondensedGraph, Graph
 from ..core.partition import STRATEGIES, PartitionResult, _partition
 from .options import CompileOptions
@@ -27,7 +29,7 @@ from .options import CompileOptions
 __all__ = [
     "Pass", "PassRecord", "PipelineContext", "PASS_REGISTRY",
     "register_pass", "get_pass", "partition_pass_name",
-    "CondensePass", "PartitionPass",
+    "CondensePass", "PartitionPass", "CodegenPass",
 ]
 
 
@@ -59,6 +61,7 @@ class PipelineContext:
     options: CompileOptions
     cg: Optional[CondensedGraph] = None
     partition: Optional[PartitionResult] = None
+    model: Optional[CompiledModel] = None
 
 
 class Pass:
@@ -74,6 +77,9 @@ class Pass:
 
     name: str = "pass"
     depends: Tuple[str, ...] = ()
+    # False keeps this pass's output out of the pipeline LRU (codegen:
+    # full ISA streams are large, and the Artifact holds its own model)
+    cacheable: bool = True
 
     def run(self, ctx: PipelineContext) -> Any:
         raise NotImplementedError
@@ -194,6 +200,42 @@ class PartitionPass(Pass):
         }
 
 
+class CodegenPass(Pass):
+    """PartitionResult -> CompiledModel (per-core ISA streams)."""
+
+    name = "codegen"
+    depends = ("batch", "quant", "strict_lmem")
+    cacheable = False
+
+    def run(self, ctx: PipelineContext) -> CompiledModel:
+        o = ctx.options
+        return _compile_model(ctx.partition, batch=o.resolved_batch(),
+                              quant=o.quant_dict() or None,
+                              strict_lmem=o.strict_lmem)
+
+    def apply(self, ctx: PipelineContext, out: CompiledModel) -> None:
+        ctx.model = out
+
+    def summarize(self, out: CompiledModel) -> str:
+        return (f"{out.total_instrs} instrs across "
+                f"{len(out.stages)} stage programs (batch={out.batch})")
+
+    def dump(self, out: CompiledModel) -> Dict[str, Any]:
+        histo: Dict[str, int] = {}
+        for st in out.stages:
+            for prog in st.programs.values():
+                for ins in prog:
+                    histo[ins.op] = histo.get(ins.op, 0) + 1
+        return {
+            "batch": out.batch,
+            "total_instrs": out.total_instrs,
+            "gmem_bytes": out.layout.size,
+            "instr_histogram": dict(sorted(histo.items())),
+            "stage_instrs": [s.total_instrs for s in out.stages],
+        }
+
+
 register_pass(CondensePass())
+register_pass(CodegenPass())
 for _s in STRATEGIES:
     register_pass(PartitionPass(_s))

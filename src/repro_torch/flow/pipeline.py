@@ -6,18 +6,21 @@ Counterpart of :mod:`repro.flow.pipeline`::
                                    CompileOptions(strategy="dp",
                                                   workload_kw={"res": 224}))
     art.evaluate("analytic")          # the mapping cost model
+    art.evaluate("trace")             # StagePlan replay
+    art.evaluate("simulate")          # cycle-accurate ISS on the ISA
     art.evaluate("func:torch")        # the INT8 oracle on the CUDA kernel
 
 The pipeline is a chain of registered passes (condense ->
-``partition:<strategy>``), each instrumented with wall time and a
-one-line IR summary (``Artifact.describe()``), and each memoized in an
-LRU cache keyed by ``(workload, chip, options-prefix)`` — only the
-option fields a pass declares in ``depends`` enter its key.
+``partition:<strategy>`` -> codegen-on-demand), each instrumented with
+wall time and a one-line IR summary (``Artifact.describe()``), and the
+first two memoized in an LRU cache keyed by ``(workload, chip,
+options-prefix)`` — only the option fields a pass declares in
+``depends`` enter its key.  Codegen runs eagerly for the simulator
+fidelities (``"simulate"``/``"func"``) and on demand otherwise
+(:meth:`Artifact.ensure_model`).
 
 Not ported yet, and raising :class:`NotImplementedError` where reached:
-code generation (``fidelity`` ``"simulate"``/``"func"``,
-:meth:`Artifact.ensure_model`), the persistent disk cache and the
-multi-chip ``system`` path.
+the persistent disk cache and the multi-chip ``system`` path.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
+
 from ..core.arch import ChipConfig
+from ..core.codegen import CompiledModel
 from ..core.graph import CondensedGraph, Graph
 from ..core.partition import PartitionResult
 from .backends import Backend, EvalReport, resolve_backend
@@ -86,8 +92,8 @@ def _chip_fingerprint(chip: ChipConfig) -> str:
 
 @dataclass
 class Artifact:
-    """The result of :func:`compile`: the partitioned model plus the
-    instrumented pass trace."""
+    """The result of :func:`compile`: the partitioned (and, on demand,
+    code-generated) model plus the instrumented pass trace."""
 
     workload: Any
     chip: ChipConfig
@@ -95,9 +101,40 @@ class Artifact:
     cg: CondensedGraph
     partition: PartitionResult
     trace: List[PassRecord] = field(default_factory=list)
+    _pipeline: Optional["Pipeline"] = None
+    _chain_key: str = ""         # cache-key prefix up to the partition
+    _model: Optional[CompiledModel] = None
 
-    def ensure_model(self) -> Any:
-        raise _missing("code generation (CodegenPass)", "codegen")
+    @property
+    def model(self) -> Optional[CompiledModel]:
+        """The compiled ISA streams, or ``None`` before codegen ran."""
+        return self._model
+
+    def ensure_model(self) -> CompiledModel:
+        """Run the codegen pass once for this artifact."""
+        if self._model is None:
+            ctx = PipelineContext(workload=self.workload, chip=self.chip,
+                                  options=self.options, cg=self.cg,
+                                  partition=self.partition)
+            pipe = self._pipeline or default_pipeline()
+            out, rec, _ = pipe._run_pass(get_pass("codegen"), ctx,
+                                         self._chain_key)
+            self._model = out
+            self.trace.append(rec)
+        return self._model
+
+    def build_gmem_image(self, weights: Any, biases: Any,
+                         inputs: Any) -> np.ndarray:
+        """The functional ISS's global-memory image (numpy int8)."""
+        return self.ensure_model().build_gmem_image(weights, biases,
+                                                    inputs)
+
+    def output_addr(self, gid: int, sample: int) -> Tuple[int, int]:
+        return self.ensure_model().output_addr(gid, sample)
+
+    @property
+    def total_instrs(self) -> int:
+        return self.ensure_model().total_instrs
 
     def evaluate(self, backend: Union[str, Backend, None] = None,
                  **kw: Any) -> EvalReport:
@@ -167,10 +204,12 @@ class Pipeline:
         key = hashlib.sha256(
             f"{prev_key}|{p.name}|{subset}".encode()).hexdigest()
         t0 = time.perf_counter()
-        cached, out = self._cache_get(key)
+        cached, out = (self._cache_get(key) if p.cacheable
+                       else (False, None))
         if not cached:
             out = p.run(ctx)
-            self._cache_put(key, out)
+            if p.cacheable:
+                self._cache_put(key, out)
         dump_path = None
         if ctx.options.dump_dir:
             dump_path = p.write_dump(out, ctx.options.dump_dir, key)
@@ -199,9 +238,6 @@ class Pipeline:
         if options.system is not None:
             raise _missing("multi-chip compilation (options.system)",
                            "system")
-        if options.fidelity in ("simulate", "func"):
-            raise _missing(f"fidelity {options.fidelity!r} (it needs "
-                           f"code generation)", "codegen")
         try:
             part_pass = get_pass(partition_pass_name(options.strategy))
         except KeyError:
@@ -226,11 +262,16 @@ class Pipeline:
             key = hashlib.sha256(
                 f"{cond_key}|chip:{_chip_fingerprint(chip)}"
                 .encode()).hexdigest()
-            _, rec, _ = self._run_pass(part_pass, ctx, key)
-            arts.append(Artifact(workload=workload, chip=chip,
-                                 options=options, cg=ctx.cg,
-                                 partition=ctx.partition,
-                                 trace=[cond_rec, rec]))
+            _, rec, key = self._run_pass(part_pass, ctx, key)
+            art = Artifact(workload=workload, chip=chip, options=options,
+                           cg=ctx.cg, partition=ctx.partition,
+                           trace=[cond_rec, rec], _pipeline=self,
+                           _chain_key=key)
+            # only the simulator fidelities need ISA streams; analytic
+            # and trace evaluate straight off the partition
+            if options.fidelity in ("simulate", "func"):
+                art.ensure_model()
+            arts.append(art)
         return arts
 
 

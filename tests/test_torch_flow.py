@@ -6,6 +6,8 @@
   ``func:torch`` on ``device="cpu"`` (the kernel's plain version) gives
   the same int8 outputs as ``func:pallas`` (Pallas interpret mode) or
   the numpy oracle ``repro.core.ref.run_reference``, for every group;
+* the simulate / func / trace fidelities and codegen run (held in full
+  against the reference in ``test_torch_sim.py``);
 * rejections: what the port does not carry yet raises.
 
 All func comparisons are integer equality (tolerance 0).
@@ -24,6 +26,10 @@ from repro_torch.convert import from_reference
 from repro_torch.core import graph, ref
 from repro_torch.core.arch import default_chip
 from repro_torch.core.partition import STRATEGIES
+
+# small tensors: one intra-op thread keeps the parallel test processes
+# from crowding each other's cores (the timing-sensitive tests among them)
+torch.set_num_threads(1)
 
 SMALL_TF = dict(n_layers=1, d_model=128, n_heads=4, seq=16, vocab=64)
 
@@ -249,21 +255,12 @@ def test_rejects_faults_and_unknown_kwargs():
         _tiny().evaluate("analytic", check=False)
 
 
-@pytest.mark.parametrize("what", ["simulate-fidelity", "func-fidelity",
-                                  "simulate-backend", "trace-backend",
-                                  "func:pallas", "codegen", "calibration",
-                                  "system", "disk-cache"])
+@pytest.mark.parametrize("what", ["func:pallas", "calibration", "system",
+                                  "disk-cache"])
 def test_not_ported_raises(what):
     with pytest.raises(NotImplementedError):
-        if what.endswith("-fidelity"):
-            flow.compile("tiny_cnn", default_chip(), flow.CompileOptions(
-                fidelity=what.split("-")[0], workload_kw={"res": 8}))
-        elif what.endswith("-backend"):
-            _tiny().evaluate(what.split("-")[0])
-        elif what == "func:pallas":
+        if what == "func:pallas":
             _tiny().evaluate("func:pallas")
-        elif what == "codegen":
-            _tiny().ensure_model()
         elif what == "calibration":
             flow.CompileOptions(calibration="preset")
         elif what == "system":
@@ -271,6 +268,54 @@ def test_not_ported_raises(what):
                 system=object(), workload_kw={"res": 8}))
         else:
             flow.Pipeline(disk_cache="cache-dir")
+
+
+@pytest.mark.parametrize("what", ["simulate-fidelity", "func-fidelity",
+                                  "simulate-backend", "trace-backend",
+                                  "codegen"])
+def test_ported_paths_evaluate(what):
+    """What used to raise as not ported now runs on the CPU and
+    matches the JAX package."""
+    if what.endswith("-fidelity"):
+        fid = what.split("-")[0]
+        kw = dict(fidelity=fid, batch=1, workload_kw={"res": 8},
+                  strict_lmem=fid == "func")
+        art = flow.compile("tiny_cnn", default_chip(),
+                           flow.CompileOptions(**kw))
+        jart = jflow.compile("tiny_cnn", j_default_chip(),
+                             jflow.CompileOptions(**kw))
+        assert art.model is not None       # codegen ran eagerly
+        assert art.total_instrs == jart.total_instrs
+        if fid == "func":
+            w, b, x = jref.random_init(jart.cg, batch=1)
+            img = art.build_gmem_image(w, b, x)
+            rep = art.evaluate(gmem_image=img)
+            jrep = jart.evaluate(gmem_image=img)
+            np.testing.assert_array_equal(rep.sim.gmem, jrep.sim.gmem)
+        else:
+            rep = art.evaluate(device="cpu")
+            jrep = jart.evaluate()
+        assert rep.backend == jrep.backend == fid
+    elif what.endswith("-backend"):
+        name = what.split("-")[0]
+        rep = _tiny().evaluate(name, **(
+            {"device": "cpu"} if name == "simulate" else {}))
+        jrep = jflow.compile("tiny_cnn", j_default_chip(), _opts(
+            jflow, batch=1, workload_kw={"res": 8})).evaluate(name)
+        assert rep.backend == jrep.backend == name
+    else:
+        art = _tiny()
+        assert art.model is None
+        cm = art.ensure_model()
+        assert art.ensure_model() is cm and art.model is cm
+        assert art.pass_record("codegen").summary.endswith("(batch=1)")
+        jcm = jflow.compile("tiny_cnn", j_default_chip(), _opts(
+            jflow, batch=1, workload_kw={"res": 8})).ensure_model()
+        assert [len(p) for s in cm.stages for p in s.programs.values()] \
+            == [len(p) for s in jcm.stages for p in s.programs.values()]
+        return
+    assert (rep.cycles, rep.energy) == (jrep.cycles, jrep.energy)
+    assert rep.cycles > 0
 
 
 def test_default_pipeline_ignores_reference_cache_env(monkeypatch,

@@ -28,6 +28,7 @@ leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert "jax" not in sys.modules or sys.modules["jax"] is None
+print(*names)
 print(len(names))
 """
 
@@ -40,12 +41,22 @@ from repro_torch import flow, resolve_device
 from repro_torch.convert import to_tensor
 from repro_torch.core import ref
 from repro_torch.core.arch import default_chip
+from repro_torch.core.simulator import Simulator
+from repro_torch.explore import FleetEvaluator
 art = flow.compile("tiny_cnn", default_chip(),
                    flow.CompileOptions(batch=1, workload_kw={"res": 8}))
+isa = art.ensure_model().isa
 calls = [resolve_device,
          lambda: ref.random_init(art.cg),
          lambda: to_tensor([1, 2]),
-         lambda: art.evaluate("func:torch")]
+         lambda: art.evaluate("func:torch"),
+         lambda: Simulator(art.chip, isa),
+         lambda: Simulator(art.chip, isa, engine="torch"),
+         lambda: art.evaluate("simulate"),
+         lambda: art.evaluate("simulate", engine="torch"),
+         lambda: FleetEvaluator(art.cg)]
+# only the host engines, asked for by name, need no device
+assert art.evaluate("simulate", engine="vector").cycles > 0
 for call in calls:
     try:
         call()
@@ -63,10 +74,18 @@ def _run(code):
                           capture_output=True, text=True, timeout=300)
 
 
+_SIM_MODULES = ["core.isa", "core.oplevel", "core.codegen", "core.trace",
+                "core.vectorsim", "core.simulator", "core.torchsim",
+                "explore", "explore.fleet"]
+
+
 def test_imports_no_jax_no_repro():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20     # every module walked
+    walked = proc.stdout.split()
+    assert int(walked[-1]) >= 30                  # every module walked
+    for mod in _SIM_MODULES:
+        assert f"repro_torch.{mod}" in walked, mod
 
 
 def test_entry_points_raise_without_card():
@@ -75,7 +94,7 @@ def test_entry_points_raise_without_card():
         pytest.skip("a CUDA device is present: the entry points use it")
     proc = _run(_NO_CARD)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "4"
+    assert proc.stdout.split()[-1] == "9"
 
 
 def test_package_source_names_no_jax_or_repro():

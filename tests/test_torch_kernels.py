@@ -21,6 +21,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import bitserial_mvm as bsm
 from repro_torch.kernels.bitserial_mvm import bitserial_mvm
 
+# small tensors: one intra-op thread keeps the parallel test processes
+# from crowding each other's cores (the timing-sensitive tests among them)
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(11)
 
 ALIGNED = [(128, 128, 128), (256, 128, 384), (128, 512, 128)]

@@ -13,6 +13,10 @@ from repro.core import ref as jref
 from repro.core import vecsem as jvs
 from repro_torch.core import ref, vecsem
 
+# small tensors: one intra-op thread keeps the parallel test processes
+# from crowding each other's cores (the timing-sensitive tests among them)
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(5)
 
 
