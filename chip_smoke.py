@@ -58,10 +58,30 @@ script exits non-zero):
    ``FleetEvaluator`` (one batched decode per stage, each on the card)
    and require each payload to equal that chip's own
    ``engine="vector"`` run, timed against that loop; evaluate the
-   trace backend once.
+   trace backend once;
+7. design-space exploration and faults, on resnet18@224 (batch 4):
+   (a) ``python -m repro_torch.explore``'s ``main`` sweeps the 64-point
+   timing space (``--strategies dp``) at simulate fidelity on the fleet
+   (``--engine torch``, no result cache): every record equals that
+   chip's own ``engine="vector"`` run of the pinned program, none
+   carries an error, and each stage is decoded by one pass on the card
+   (s per point; the fleet's device, copy and host times); (b) its
+   successive halving (mg-flit space, top 3, calibrated from 2
+   simulator runs, no cache): 5 simulator runs on the card's ``torch``
+   engine, every stage decoded there, no error record, each promoted
+   record equal to an ``engine="vector"`` run of its point; (c)
+   ``faults.degradation_curve`` on the configuration
+   ``benchmarks/bench_faults.py`` pins (tiny_cnn, res 8, c 8, batch 2,
+   seed 0) on the card reproduces ``BENCH_faults.json``'s degradation
+   rows and clean-output hash exactly; (d) ``evaluate("func:torch",
+   check=True, faults=...)`` for ``FAULT_MODELS`` (stuck-at 1e-3, and
+   1e-2 with transient flips) with the kernel's launches counted per run
+   (21), the ms of each faulty run against a clean one, then
+   ``degradation_curve`` over ``FAULT_RATES`` (BER, top-1 agreement).
 
-The second-to-last line is the ``{"kernels": [...]}`` JSON record and
-the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
+The ``launches`` of the ``kernels`` record count the main paths of
+phases 3 and 7.  The second-to-last line is the ``{"kernels": [...]}``
+JSON record and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
 port's sources are not beside this script.
 """
@@ -69,9 +89,13 @@ port's sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -89,6 +113,12 @@ PATHS = [("resnet18@224", "resnet18", {"res": 224}, 4),
          ("transformer", "transformer", {}, 1)]
 N_FLEET = 16                  # timing variants in the fleet phase
 REPS_SIM = 3                  # timed runs of each simulate engine
+# phase 7: the DSE sweeps, and the faults at full width (7d)
+EXPLORE_PATH = ("resnet18@224", "resnet18", {"res": 224}, 4)
+FAULT_MODELS = [{"rate": 1e-3}, {"rate": 1e-2, "transient_rate": 1e-5}]
+FAULT_RATES = (0.0, 1e-3, 1e-2)
+# 7c: the configuration benchmarks/bench_faults.py pins (BENCH_faults.json)
+GOLDEN_FAULTS = ("tiny_cnn", {"res": 8, "c": 8}, 2, 0)
 
 
 def log(*a):
@@ -397,6 +427,314 @@ def simulate_phase(paths, n_fleet: int, device=None) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def decodes_counted():
+    """Within the block, every torch-engine stage decode (a single
+    simulator's or a fleet's) adds to one ``StageTiming``; yields it,
+    the torch decoders made inside (their ``fallbacks`` count stages
+    left to the scalar interpreter) and the stage counts of each
+    torch-engine ``Simulator.run_model``."""
+    from repro_torch.core import torchsim
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.explore import fleet
+    timing = torchsim.StageTiming()
+    decoders, runs = [], []
+    saved = (torchsim.TorchStageDecoder.__init__,
+             fleet.FleetEvaluator.__init__, Simulator.run_model)
+
+    def dec_init(self, *a, **kw):
+        saved[0](self, *a, **kw)
+        self.timing = timing
+        decoders.append(self)
+
+    def fleet_init(self, *a, **kw):
+        saved[1](self, *a, **kw)
+        self.timing = timing
+
+    def run_model(self, model, *a, **kw):
+        if self.engine == "torch":
+            runs.append(len(model.stages))
+        return saved[2](self, model, *a, **kw)
+
+    torchsim.TorchStageDecoder.__init__ = dec_init
+    fleet.FleetEvaluator.__init__ = fleet_init
+    Simulator.run_model = run_model
+    try:
+        yield timing, decoders, runs
+    finally:
+        (torchsim.TorchStageDecoder.__init__,
+         fleet.FleetEvaluator.__init__, Simulator.run_model) = saved
+
+
+def run_cli(argv) -> tuple:
+    """``(s, stdout)`` of ``repro_torch.explore.cli.main(argv)``, which
+    must return 0."""
+    from repro_torch.explore import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"explore {argv}: exit {rc}")
+    return wall, buf.getvalue()
+
+
+def same_payload(rec, rep, chip, batch) -> bool:
+    """A record's cycles, energy and throughput equal a simulator
+    report's, bit for bit."""
+    sps = (0.0 if rep.cycles <= 0
+           else batch / (rep.cycles / (chip.clock_ghz * 1e9)))
+    return (rec.cycles == rep.cycles and rec.energy == dict(rep.energy())
+            and rec.throughput_sps == sps)
+
+
+def explore_phase(path, device=None) -> dict:
+    """Phase 7 (a) and (b): ``python -m repro_torch.explore``'s ``main``
+    on ``path``.  (a) the 64-point timing sweep (``--strategies dp``:
+    one compile) at simulate fidelity on the fleet (``--engine torch``),
+    each record against that chip's own
+    ``engine="vector"`` run of the pinned program; (b) successive
+    halving on the mg-flit space, top 3 after a 2-run calibration, each
+    promoted record against an ``engine="vector"`` run of its point.
+    No result cache; every stage of every torch-engine run must be
+    decoded by one pass on ``device`` (the card unless named).  Raises
+    on any mismatch; returns the measurements."""
+    import torch
+    from repro_torch import flow
+    from repro_torch.core import workloads
+    from repro_torch.core.mapping import CostParams
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.explore import RecordStore, canonical_chip
+
+    label, model, kw, batch = path
+    cuda = device is None or torch.device(device).type == "cuda"
+    dev_arg = [] if device is None else ["--device", str(device)]
+    res_arg = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+    params = CostParams(batch=batch)
+    cg = workloads.build(model, **kw).condense()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the timing sweep on the fleet
+        store = str(Path(tmp) / "timing.jsonl")
+        with decodes_counted() as (timing, decoders, runs):
+            wall, text = run_cli(
+                ["sweep", model, *res_arg, "--batch", str(batch),
+                 "--space", "timing", "--strategies", "dp",
+                 "--fidelity", "simulate", "--engine", "torch",
+                 "--no-cache", "--store", store]
+                + dev_arg)
+        recs = RecordStore(store).load()
+        canon = {canonical_chip(r.point.chip()) for r in recs}
+        if len(recs) != 64 or len(canon) != 1:
+            raise AssertionError(f"timing sweep: {len(recs)} records, "
+                                 f"{len(canon)} canonical chips")
+        cm = flow.compile(cg, canon.pop(), flow.CompileOptions(
+            strategy="dp", params=params,
+            fidelity="simulate")).ensure_model()
+        if (timing.calls != len(cm.stages) or runs
+                or any(r.error or r.engine != "torch" for r in recs)):
+            raise AssertionError(
+                f"timing sweep: {timing.calls} stage passes for "
+                f"{len(cm.stages)} stages, {len(runs)} per-point torch "
+                f"runs, errors {[r.error for r in recs if r.error]}")
+        t0 = time.perf_counter()
+        for r in recs:
+            chip = r.point.chip()
+            rep = Simulator(chip, cm.isa, engine="vector").run_model(cm)
+            if not same_payload(r, rep, chip, cm.batch):
+                raise AssertionError(f"timing sweep: {r.point} "
+                                     f"{r.cycles} != vector {rep.cycles}")
+        vector_s = time.perf_counter() - t0
+        td = timing.as_dict()
+        out["timing_sweep"] = {
+            "points": len(recs), "wall_s": wall,
+            "s_per_point": wall / len(recs),
+            "fleet_wall_s_per_point": recs[0].wall_s,
+            "decode": td, "vector_loop_s_per_point": vector_s / len(recs),
+            "cycles": [min(r.cycles for r in recs),
+                       max(r.cycles for r in recs)]}
+        log(f"explore timing sweep {label}: {len(recs)} points == their "
+            f"vector runs on the pinned program; cli.main {wall:.3f} s "
+            f"({wall / len(recs):.4f} s per point, codegen included; fleet "
+            f"{recs[0].wall_s:.4f} s per point), {timing.calls} stage "
+            f"passes on {'the card' if cuda else device}: device "
+            f"{td['pass_ms']:.3f} ms, copies "
+            f"{td['h2d_ms'] + td['d2h_ms']:.3f} ms, host prep "
+            f"{td['prep_s']:.3f} s + finish {td['finish_s']:.3f} s; the "
+            f"vector loop {vector_s / len(recs):.4f} s per point; cycles "
+            f"{out['timing_sweep']['cycles']}")
+        for line in text.splitlines()[:3]:
+            log(f"  {line}")
+
+        # (b) successive halving with calibration
+        store = str(Path(tmp) / "halving.jsonl")
+        with decodes_counted() as (timing, decoders, runs):
+            wall, text = run_cli(
+                ["sweep", model, *res_arg, "--batch", str(batch),
+                 "--space", "mg-flit", "--top-k", "3", "--calibrate", "2",
+                 "--no-cache", "--store", store] + dev_arg)
+        recs = RecordStore(store).load()
+        promoted = [r for r in recs if r.fidelity == "simulate"]
+        fallbacks = sum(d.fallbacks for d in decoders)
+        if (any(r.error for r in recs) or len(promoted) != 3
+                or len(runs) != 5 or fallbacks
+                or timing.calls != sum(runs)):
+            raise AssertionError(
+                f"successive halving: {len(recs)} records "
+                f"({[r.error for r in recs if r.error]} errors), "
+                f"{len(promoted)} promoted, {len(runs)} simulator runs, "
+                f"{timing.calls} stage passes for {sum(runs)} stages, "
+                f"{fallbacks} to the scalar interpreter")
+        for r in promoted:
+            chip = r.point.chip()
+            rep = flow.compile(cg, chip, flow.CompileOptions(
+                strategy=r.point.strategy, params=params,
+                fidelity="simulate")).evaluate("simulate", engine="vector")
+            if (r.cycles, r.energy, r.throughput_sps) != (
+                    rep.cycles, rep.energy, rep.throughput_sps):
+                raise AssertionError(f"successive halving: {r.point} "
+                                     f"{r.cycles} != vector {rep.cycles}")
+        td = timing.as_dict()
+        out["successive_halving"] = {
+            "records": len(recs), "promoted": len(promoted),
+            "simulator_runs": len(runs), "wall_s": wall,
+            "promoted_wall_s": [r.wall_s for r in promoted],
+            "screen_wall_s": sum(r.wall_s for r in recs
+                                 if r.fidelity != "simulate"),
+            "decode": td}
+        log(f"explore successive halving {label}: {len(recs) - 3} screened "
+            f"records, 2 calibration + 3 promoted simulator runs on "
+            f"{'the card' if cuda else device} ({timing.calls} stage "
+            f"passes, 0 to the scalar interpreter), promoted == vector; "
+            f"cli.main {wall:.3f} s; promoted points "
+            f"{[round(r.wall_s, 3) for r in promoted]} s each; stage "
+            f"passes {td['pass_ms']:.3f} ms device")
+        for line in text.splitlines()[-5:-2]:
+            log(f"  {line}")
+    return out
+
+
+def faults_phase(golden, path, device=None) -> dict:
+    """Phase 7 (c) and (d): ``degradation_curve`` on the configuration
+    ``BENCH_faults.json`` pins against its rows and clean-output hash;
+    then faulty ``func:torch`` (``check=True``) on ``path`` for each of
+    ``FAULT_MODELS``, and ``degradation_curve`` over ``FAULT_RATES`` on
+    it, with the kernel's launches counted.  The oracle runs on
+    ``device`` (the card unless named).  Raises on any mismatch;
+    returns the measurements and the launches counted."""
+    import numpy as np
+    import torch
+    from repro_torch import flow
+    from repro_torch.core import ref, workloads
+    from repro_torch.core.arch import default_chip
+    from repro_torch.faults import (FaultModel, degradation_curve,
+                                    resolve_faults)
+    from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels.ops import cim_mvm
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if device is None else \
+        torch.device(device)
+    chip = default_chip()
+    out = {"launches": 0}
+
+    def counted(expected, fn):
+        bsm.bitserial_mvm.launches = 0
+        t0 = time.perf_counter()
+        got = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = bsm.bitserial_mvm.launches
+        if cuda and n != expected:
+            raise AssertionError(f"{n} kernel launches, expected "
+                                 f"{expected}")
+        out["launches"] += n
+        return wall, n, got
+
+    # (c) the golden degradation curve
+    model, kw, batch, seed = golden
+    want = json.loads((ROOT / "BENCH_faults.json").read_text())
+    rates = [r["rate"] for r in want["degradation"]]
+    cg = workloads.build(model, **kw).condense()
+    wall, n, rows = counted((1 + len(rates)) * len(cg), lambda:
+                            degradation_curve(cg, chip, rates, batch=batch,
+                                              seed=seed, device=device))
+    if rows != want["degradation"]:
+        raise AssertionError(f"degradation {rows} != BENCH_faults.json "
+                             f"{want['degradation']}")
+    w, b, x = ref.random_init(cg, batch=batch, seed=seed, device=dev)
+    clean = ref.run_reference(cg, w, b, ref.auto_quant(cg, w, b, x), x,
+                              matmul=cim_mvm)
+    h = hashlib.sha256()
+    for gid in sorted(clean):
+        h.update(np.ascontiguousarray(clean[gid].cpu().numpy()).tobytes())
+    if h.hexdigest() != want["clean_identity"]["output_sha256"]:
+        raise AssertionError("clean outputs differ from BENCH_faults.json")
+    out["golden"] = {"rows": rows, "launches": n, "wall_s": wall}
+    log(f"faults golden ({model} {kw}, batch {batch}): degradation rows "
+        f"and clean-output sha256 == BENCH_faults.json; {n} launches, "
+        f"{wall:.3f} s")
+
+    # (d) faulty func:torch and a degradation curve at full width
+    label, model, kw, batch = path
+    art = flow.compile(model, chip, flow.CompileOptions(
+        strategy="dp", batch=batch, workload_kw=kw))
+    cg = art.cg
+    n_dyn = sum(1 for g in cg if g.dynamic_weights)
+    per_run = len(cg) - n_dyn + batch * n_dyn
+    w, b, x = ref.random_init(cg, batch=batch, seed=0, device=dev)
+    q = ref.auto_quant(cg, w, b, x)
+    clean = art.evaluate("func:torch", weights=w, biases=b, inputs=x,
+                         quant=q, check=False, device=device).outputs
+    runs = []
+    for fm in [{"rate": 0.0}] + FAULT_MODELS:
+        t0 = time.perf_counter()
+        fs = resolve_faults(w, chip, FaultModel(seed=0, **fm))
+        resolve_s = time.perf_counter() - t0
+
+        def run(check):
+            return art.evaluate("func:torch", weights=w, biases=b,
+                                inputs=x, quant=q, check=check, faults=fs,
+                                device=device)
+
+        check_s, n, rep = counted(per_run, lambda: run(True))
+        ms = min(counted(per_run, lambda: run(False))[0]
+                 for _ in range(3)) * 1e3
+        final = len(cg) - 1
+        agree = float(np.mean(
+            rep.outputs[final].reshape(batch, -1).argmax(1)
+            == clean[final].reshape(batch, -1).argmax(1)))
+        changed = sum(int((rep.outputs[g] != clean[g]).sum())
+                      for g in clean)
+        if (fm["rate"] == 0.0) != (changed == 0):
+            raise AssertionError(f"func:torch {fm}: {changed} output "
+                                 f"bytes differ from the clean run")
+        runs.append({"fault_model": fm, "n_stuck": fs.n_stuck,
+                     "resolve_s": resolve_s, "check_s": check_s,
+                     "launches": n, "evaluate_ms": ms,
+                     "changed_bytes": changed, "top1_agreement": agree})
+        log(f"func:torch {label} faults {fm}: check=True passes with "
+            f"{n} launches ({check_s:.3f} s); {fs.n_stuck} stuck bits "
+            f"resolved in {resolve_s:.3f} s; evaluate(check=False) "
+            f"{ms:.3f} ms (best of 3); {changed} output bytes changed, "
+            f"top-1 agreement {agree}")
+    out["func_torch"] = runs
+    wall, n, rows = counted((1 + len(FAULT_RATES)) * per_run, lambda:
+                            degradation_curve(cg, chip, FAULT_RATES,
+                                              batch=batch, seed=0,
+                                              device=device))
+    if rows[0]["ber"] != 0.0 or not all(r["ber"] > 0 for r in rows[1:]):
+        raise AssertionError(f"degradation {label}: {rows}")
+    out["degradation"] = {"rows": rows, "launches": n, "wall_s": wall}
+    log(f"degradation_curve {label} rates {FAULT_RATES}: {n} launches, "
+        f"{wall:.3f} s; " + "; ".join(
+            f"rate {r['rate']}: {r['n_stuck']:.0f} stuck, BER "
+            f"{r['ber']:.6f}, top-1 {r['top1_agreement']}" for r in rows))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -687,6 +1025,14 @@ def main() -> int:
     # 6. the simulate fidelity: torch engine, fleet, trace --------------------
     report["simulate"] = simulate_phase(PATHS, N_FLEET)
     log(f"simulate phase done [{card}]")
+
+    # 7. design-space exploration and faults --------------------------------
+    report["explore"] = explore_phase(EXPLORE_PATH)
+    report["faults"] = faults_phase(GOLDEN_FAULTS, EXPLORE_PATH)
+    launches_total += report["faults"]["launches"]
+    log(f"explore and faults phase done; kernel launches: {launches_total}"
+        f" on the main paths ({launches_total - report['faults']['launches']}"
+        f" in phase 3, {report['faults']['launches']} in phase 7) [{card}]")
 
     kernels = [{
         "name": "bitserial_mvm",

@@ -15,9 +15,15 @@ find:
   beside its plain PyTorch version (:mod:`~repro_torch.kernels.ref`);
 * :mod:`repro_torch.flow` — ``compile(workload, chip, options)`` ->
   ``Artifact.evaluate(backend)`` with the ``analytic``, ``trace``,
-  ``simulate``/``perf``, ``func`` and ``func:torch`` backends;
-* :mod:`repro_torch.explore` — :class:`~repro_torch.explore.
-  FleetEvaluator`, one compiled program under many chips' timing;
+  ``simulate``/``perf``, ``func`` and ``func:torch`` backends, the pass
+  disk cache and calibration presets;
+* :mod:`repro_torch.explore` — design-space exploration: spaces, the
+  cached pool engine, search, Pareto analysis, the CLI
+  (``python -m repro_torch.explore``) and
+  :class:`~repro_torch.explore.FleetEvaluator`, one compiled program
+  under many chips' timing;
+* :mod:`repro_torch.faults` — seeded fault models, their hooks in the
+  oracle and the functional ISS, and degradation curves;
 * :mod:`repro_torch.convert` — carries the JAX package's numpy
   weights/inputs/quantization across as tensors.
 

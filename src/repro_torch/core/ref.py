@@ -29,7 +29,7 @@ the bit-serial CUDA kernel; the default is the exact plain contraction.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,7 +134,8 @@ def run_reference(cg: CondensedGraph, weights: Dict[int, torch.Tensor],
                   quant: Dict[int, QuantParams],
                   inputs: torch.Tensor,
                   return_acc: bool = False,
-                  matmul: Optional[MatmulFn] = None
+                  matmul: Optional[MatmulFn] = None,
+                  faults: Optional[Any] = None
                   ) -> Dict[Union[int, str], torch.Tensor]:
     """Forward-pass the batch; returns {gid: (batch, ...) int8 maps}
     (conv groups: (B, ho', wo', N) post-fusion; vector groups: (B, N)).
@@ -143,6 +144,15 @@ def run_reference(cg: CondensedGraph, weights: Dict[int, torch.Tensor],
     overrides the contraction (default: the exact plain
     :func:`repro_torch.kernels.ref.mvm_ref`).  ``return_acc`` adds
     ``"acc"``: {gid: (B, M, N) int32 accumulators before the fused ops}.
+
+    ``faults`` is an optional :class:`repro_torch.faults.FaultSet`:
+    static weight matrices are stuck-at-corrupted before the MVM and
+    each sample's ``(M, N)`` slice of the accumulator takes its
+    deterministic per-``(group, sample)`` transient flips after it, as
+    in the reference.  ``None`` (and an empty set) leave the oracle
+    bit-exactly unchanged.  Dynamic-weight (attention) matmuls build
+    their matrix from activations at run time and carry no
+    stored-weight faults.
     """
     mm: MatmulFn = matmul if matmul is not None else mvm_ref
     src = cg.source
@@ -168,6 +178,8 @@ def run_reference(cg: CondensedGraph, weights: Dict[int, torch.Tensor],
             kdim, n = W.shape[1:]
         else:
             W = weights[g.idx]
+            if faults is not None:
+                W = faults.corrupt_weight_matrix(g.idx, W)
             kdim, n = W.shape
         if spec is not None:
             k, stride, pad, dw = spec
@@ -180,6 +192,9 @@ def run_reference(cg: CondensedGraph, weights: Dict[int, torch.Tensor],
             acc = torch.stack([mm(a[s], W[s]) for s in range(B)])
         else:
             acc = mm(a.reshape(-1, kdim), W).reshape(B, -1, n)
+        if faults is not None:
+            acc = torch.stack([faults.corrupt_acc(acc[s], g.idx, s)
+                               for s in range(B)])
         if return_acc:
             accs[g.idx] = acc
         sv = (outs[side[0]] if side else x) \

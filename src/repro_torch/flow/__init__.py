@@ -17,10 +17,15 @@ Counterpart of :mod:`repro.flow`::
   fidelity in one frozen record.
 * :class:`Pass` + :func:`register_pass` — partition strategies plug in
   as ``partition:<name>`` passes.
-* :class:`Pipeline` — runs the pass chain behind an LRU output cache.
+* :class:`Pipeline` — runs the pass chain behind an LRU output cache
+  and, optionally, a disk tier shared across processes
+  (:class:`PassDiskCache`).
 * :class:`Backend` + :func:`register_backend` — the analytic cost
   model, the trace replay, the ISS simulator and the ``func:torch``
   oracle behind ``Artifact.evaluate``.
+* :func:`calibrate` — per-unit correction factors for the analytic and
+  trace fidelities from a few simulator runs, saved and loaded as named
+  presets (:func:`save_calibration`, :func:`load_calibration`).
 """
 
 from ..core.machine import Calibration, MachineModel, machine_for
@@ -28,6 +33,10 @@ from .backends import (BACKENDS, AnalyticBackend, Backend, EvalReport,
                        SimulatorBackend, TorchFuncBackend, TraceBackend,
                        backend_for_fidelity, register_backend,
                        resolve_backend)
+from .calibrate import (CalibrationReport, CalibrationRow, calibrate,
+                        calibration_dir, list_calibrations,
+                        load_calibration, save_calibration)
+from .diskcache import PassDiskCache
 from .options import FIDELITIES, CompileOptions
 from .passes import (PASS_REGISTRY, CodegenPass, CondensePass, Pass,
                      PartitionPass, PassRecord, PipelineContext, get_pass,
@@ -45,5 +54,8 @@ __all__ = [
     "SimulatorBackend", "TorchFuncBackend",
     "BACKENDS", "register_backend", "resolve_backend",
     "backend_for_fidelity",
-    "Calibration", "MachineModel", "machine_for",
+    "calibrate", "CalibrationReport", "CalibrationRow",
+    "calibration_dir", "save_calibration", "load_calibration",
+    "list_calibrations",
+    "Calibration", "MachineModel", "machine_for", "PassDiskCache",
 ]

@@ -140,7 +140,9 @@ class SimulatorBackend(Backend):
     ``"vector"`` (numpy, no fallback) and ``"scalar"`` (the
     interpreter) are the host engines.  All are cycle- and
     event-identical; ``engine=...`` and ``device=...`` on ``evaluate``
-    override per call.
+    override per call.  ``faults`` (functional mode) is a
+    :class:`repro_torch.faults.PhysicalCimFaults` injecting stuck bits
+    at ``CIM_LOAD`` time.
     """
 
     def __init__(self, mode: str = "perf", name: Optional[str] = None,
@@ -164,16 +166,13 @@ class SimulatorBackend(Backend):
         if kw:
             raise TypeError(f"simulator backend takes only gmem_image, "
                             f"engine, faults and device, got {sorted(kw)}")
-        if faults is not None:
-            raise NotImplementedError(
-                "the simulator does not inject faults yet (the faults "
-                "slice); pass faults=None")
         t0 = time.perf_counter()
         model = artifact.ensure_model()
         # the engine passes through unchanged: Simulator itself rejects
         # func+vector and unknown engines
         sim = Simulator(artifact.chip, model.isa, mode=self.mode,
-                        engine=engine or self.engine, device=device)
+                        engine=engine or self.engine, faults=faults,
+                        device=device)
         rep = sim.run_model(model, gmem_image=gmem_image)
         batch = model.batch
         return EvalReport(
@@ -197,6 +196,10 @@ class TorchFuncBackend(Backend):
     draws from ``seed``; ``quant`` to :func:`~repro_torch.core.ref.
     auto_quant`.  ``device`` defaults to CUDA (raises without a card).
     ``outputs`` come back as numpy int8, keyed by group.
+
+    ``faults`` (a :class:`repro_torch.faults.FaultSet`) corrupts both
+    oracles identically, so the check stays meaningful on faulty runs:
+    it validates the kernel, not the fault model.
     """
 
     name = "func:torch"
@@ -211,10 +214,6 @@ class TorchFuncBackend(Backend):
             raise TypeError(f"func:torch backend takes weights/biases/"
                             f"inputs/quant/check/seed/faults/device, "
                             f"got {sorted(kw)}")
-        if faults is not None:
-            raise NotImplementedError(
-                "func:torch does not inject faults yet (the faults "
-                "slice); pass faults=None")
         given = [a is not None for a in (weights, biases, inputs)]
         if any(given) and not all(given):
             raise TypeError("pass weights+biases+inputs together or none "
@@ -231,9 +230,10 @@ class TorchFuncBackend(Backend):
         if quant is None:
             quant = ref.auto_quant(cg, weights, biases, inputs)
         outs = ref.run_reference(cg, weights, biases, quant, inputs,
-                                 matmul=cim_mvm)
+                                 matmul=cim_mvm, faults=faults)
         if check:
-            want = ref.run_reference(cg, weights, biases, quant, inputs)
+            want = ref.run_reference(cg, weights, biases, quant, inputs,
+                                     faults=faults)
             for gid, arr in want.items():
                 got = outs[gid]
                 if got.shape != arr.shape or not torch.equal(got, arr):

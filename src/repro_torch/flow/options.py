@@ -48,9 +48,11 @@ class CompileOptions:
     workload_kw: Optional[Mapping[str, Any]] = None   # for str workloads
     dump_dir: Optional[str] = None    # per-pass JSON IR dumps (debugging)
     # per-unit correction factors applied by the analytic and trace
-    # backends at evaluation time; the partition search itself stays
-    # uncalibrated and cache-shared.  Named presets (a string) need the
-    # calibration slice.
+    # backends at evaluation time (fit via repro_torch.flow.calibrate);
+    # the partition search itself stays uncalibrated and cache-shared.
+    # A string names a saved preset (results/calibrations/<name>.json,
+    # written by flow.calibrate(..., save=name)) and is resolved to the
+    # Calibration it holds at construction time.
     calibration: Union[Calibration, str, None] = None
     # multi-chip scale-out (a SystemConfig) needs the system slice
     system: Optional[Any] = None
@@ -60,10 +62,9 @@ class CompileOptions:
             raise ValueError(f"fidelity must be one of {FIDELITIES}, "
                              f"got {self.fidelity!r}")
         if isinstance(self.calibration, str):
-            raise NotImplementedError(
-                "named calibration presets need flow/calibrate.py, which "
-                "the port has not reached yet (calibration slice); pass "
-                "a Calibration object")
+            from .calibrate import load_calibration    # late: cycle
+            object.__setattr__(self, "calibration",
+                               load_calibration(self.calibration))
         if self.batch is not None and self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         if self.quant is not None and not isinstance(self.quant, tuple):

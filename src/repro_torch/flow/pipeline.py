@@ -15,18 +15,22 @@ The pipeline is a chain of registered passes (condense ->
 wall time and a one-line IR summary (``Artifact.describe()``), and the
 first two memoized in an LRU cache keyed by ``(workload, chip,
 options-prefix)`` — only the option fields a pass declares in
-``depends`` enter its key.  Codegen runs eagerly for the simulator
-fidelities (``"simulate"``/``"func"``) and on demand otherwise
+``depends`` enter its key.  Below the LRU, an optional disk tier
+(:class:`~repro_torch.flow.diskcache.PassDiskCache`) shares pass outputs
+across processes.  Codegen runs eagerly for the simulator fidelities
+(``"simulate"``/``"func"``) and on demand otherwise
 (:meth:`Artifact.ensure_model`).
 
 Not ported yet, and raising :class:`NotImplementedError` where reached:
-the persistent disk cache and the multi-chip ``system`` path.
+the multi-chip ``system`` path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import os
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -39,6 +43,8 @@ from ..core.codegen import CompiledModel
 from ..core.graph import CondensedGraph, Graph
 from ..core.partition import PartitionResult
 from .backends import Backend, EvalReport, resolve_backend
+from .diskcache import ENV_VAR as _CACHE_ENV
+from .diskcache import PassDiskCache
 from .options import CompileOptions
 from .passes import (Pass, PassRecord, PipelineContext, get_pass,
                      partition_pass_name)
@@ -143,6 +149,26 @@ class Artifact:
         return resolve_backend(backend, self.options.fidelity).evaluate(
             self, **kw)
 
+    def replace_options(self, **kw: Any) -> "Artifact":
+        """This artifact under tweaked *evaluation* options — the
+        compiled partition is shared, nothing re-runs.  Fields that
+        feed codegen (``batch``, ``quant``, ``strict_lmem``) drop the
+        cached model so ``ensure_model`` re-lowers on demand; fields
+        that determine the partition itself (``strategy``, ``params``,
+        ``workload_kw``) cannot be swapped under a finished compile —
+        re-run :func:`compile` for those."""
+        stale = {"strategy", "params", "workload_kw"} & set(kw)
+        if stale:
+            raise ValueError(
+                f"{sorted(stale)} change the partition; recompile via "
+                f"flow.compile(...) instead of replace_options")
+        opts = self.options.replace(**kw)
+        keep_model = self._model if not (
+            {"batch", "quant", "strict_lmem"} & set(kw)) else None
+        return dataclasses.replace(self, options=opts,
+                                   trace=list(self.trace),
+                                   _model=keep_model)
+
     def pass_record(self, name: str) -> Optional[PassRecord]:
         """Latest trace record for a pass (``"partition"`` matches the
         strategy-qualified partition pass)."""
@@ -159,19 +185,26 @@ class Artifact:
 
 
 class Pipeline:
-    """Pass runner with an in-memory LRU output cache.
+    """Pass runner with a two-tier (LRU + optional disk) output cache.
 
     One pipeline's cache is shared across all its ``compile()`` calls;
     :func:`default_pipeline` gives every caller in a process
     cross-fidelity partition reuse.  ``cache_size=0`` disables caching.
+
+    ``disk_cache`` (a directory path or :class:`PassDiskCache`) adds a
+    persistent tier below the LRU, shared *across processes*: explore's
+    pool workers — and a re-run of the same sweep — skip re-partitioning
+    anything any process already partitioned.
     """
 
     def __init__(self, cache_size: int = 8192,
-                 disk_cache: Optional[str] = None) -> None:
-        if disk_cache is not None:
-            raise _missing("the persistent pass disk cache", "disk cache")
+                 disk_cache: Union[str, PassDiskCache, None] = None
+                 ) -> None:
         self.cache_size = int(cache_size)
         self._cache: "OrderedDict[str, Any]" = OrderedDict()
+        if isinstance(disk_cache, str):
+            disk_cache = PassDiskCache(disk_cache)
+        self.disk = disk_cache
         self.hits = 0
         self.misses = 0
 
@@ -180,10 +213,16 @@ class Pipeline:
             self._cache.move_to_end(key)
             self.hits += 1
             return True, self._cache[key]
+        if self.disk is not None:
+            ok, out = self.disk.get(key)
+            if ok:
+                self.hits += 1
+                self._mem_put(key, out)     # promote to the hot tier
+                return True, out
         self.misses += 1
         return False, None
 
-    def _cache_put(self, key: str, value: Any) -> None:
+    def _mem_put(self, key: str, value: Any) -> None:
         if self.cache_size <= 0:
             return
         self._cache[key] = value
@@ -191,9 +230,18 @@ class Pipeline:
         while len(self._cache) > self.cache_size:
             self._cache.popitem(last=False)
 
+    def _cache_put(self, key: str, value: Any) -> None:
+        self._mem_put(key, value)
+        if self.disk is not None:
+            self.disk.put(key, value)
+
     def cache_info(self) -> Dict[str, int]:
-        return {"entries": len(self._cache), "hits": self.hits,
+        info = {"entries": len(self._cache), "hits": self.hits,
                 "misses": self.misses}
+        if self.disk is not None:
+            info["disk_hits"] = self.disk.hits
+            info["disk_misses"] = self.disk.misses
+        return info
 
     def clear_cache(self) -> None:
         self._cache.clear()
@@ -279,10 +327,18 @@ _DEFAULT_PIPELINE: Optional[Pipeline] = None
 
 
 def default_pipeline() -> Pipeline:
-    """The process-wide pipeline (shared pass-output cache)."""
+    """The process-wide pipeline (shared pass-output cache).
+
+    When the ``REPRO_TORCH_FLOW_CACHE`` environment variable names a
+    directory, the pipeline also persists pass outputs there —
+    processes pointed at the same directory (e.g. explore pool workers)
+    share partitions.  Set before first use; the pipeline is created
+    once per process.
+    """
     global _DEFAULT_PIPELINE
     if _DEFAULT_PIPELINE is None:
-        _DEFAULT_PIPELINE = Pipeline()
+        _DEFAULT_PIPELINE = Pipeline(
+            disk_cache=os.environ.get(_CACHE_ENV) or None)
     return _DEFAULT_PIPELINE
 
 

@@ -247,8 +247,20 @@ def test_rejects_partial_tensors():
 
 
 def test_rejects_faults_and_unknown_kwargs():
-    with pytest.raises(NotImplementedError):
-        _tiny().evaluate("func:torch", device="cpu", faults=object())
+    """``faults`` takes a fault set (an empty one leaves the outputs
+    unchanged) and rejects anything else; unknown keywords raise."""
+    from repro_torch.faults import FaultModel, resolve_faults
+    art = _tiny()
+    with pytest.raises(AttributeError):
+        art.evaluate("func:torch", device="cpu", faults=object())
+    w, b, x = ref.random_init(art.cg, batch=1, device="cpu")
+    fs = resolve_faults(w, art.chip, FaultModel())
+    clean = art.evaluate("func:torch", weights=w, biases=b, inputs=x,
+                         device="cpu")
+    faulty = art.evaluate("func:torch", weights=w, biases=b, inputs=x,
+                          faults=fs, device="cpu")
+    for gid, out in clean.outputs.items():
+        np.testing.assert_array_equal(faulty.outputs[gid], out)
     with pytest.raises(TypeError):
         _tiny().evaluate("func:torch", device="cpu", engine="jax")
     with pytest.raises(TypeError):
@@ -257,17 +269,28 @@ def test_rejects_faults_and_unknown_kwargs():
 
 @pytest.mark.parametrize("what", ["func:pallas", "calibration", "system",
                                   "disk-cache"])
-def test_not_ported_raises(what):
+def test_not_ported_raises(what, tmp_path):
+    """What the port lacks raises ``NotImplementedError``.  Named
+    calibration presets and the pass disk cache are ported since: they
+    raise only on what cannot be served (an unknown preset, a cache
+    root that is a file)."""
+    if what == "calibration":
+        with pytest.raises(FileNotFoundError, match="default-chip"):
+            flow.CompileOptions(calibration="preset")
+        return
+    if what == "disk-cache":
+        root = tmp_path / "file"
+        root.write_text("")
+        with pytest.raises(OSError):
+            flow.Pipeline(disk_cache=str(root)).compile(
+                "tiny_cnn", default_chip(), workload_kw={"res": 8})
+        return
     with pytest.raises(NotImplementedError):
         if what == "func:pallas":
             _tiny().evaluate("func:pallas")
-        elif what == "calibration":
-            flow.CompileOptions(calibration="preset")
-        elif what == "system":
+        else:
             flow.compile("tiny_cnn", default_chip(), flow.CompileOptions(
                 system=object(), workload_kw={"res": 8}))
-        else:
-            flow.Pipeline(disk_cache="cache-dir")
 
 
 @pytest.mark.parametrize("what", ["simulate-fidelity", "func-fidelity",

@@ -2,9 +2,11 @@
 
 Every module of the port is imported in a fresh interpreter where
 ``import jax`` fails (``sys.modules["jax"] = None``); afterwards no
-module named ``repro`` or ``repro.*`` may be loaded.  The entry points
-also refuse to fall back to the CPU quietly: without a card and without
-an explicit ``device`` they raise.
+module named ``repro`` or ``repro.*`` may be loaded.  The same holds
+for ``python -m repro_torch.explore`` and for a flow disk cache that
+the JAX package wrote into.  The entry points also refuse to fall back
+to the CPU quietly: without a card and without an explicit ``device``
+they raise.
 """
 
 import os
@@ -42,7 +44,13 @@ from repro_torch.convert import to_tensor
 from repro_torch.core import ref
 from repro_torch.core.arch import default_chip
 from repro_torch.core.simulator import Simulator
-from repro_torch.explore import FleetEvaluator
+from repro_torch.explore import (ExplorationEngine, FleetEvaluator,
+                                 DesignPoint, cli, evaluate_chip)
+from repro_torch.faults import degradation_curve
+import warnings
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    from repro_torch.core import dse
 art = flow.compile("tiny_cnn", default_chip(),
                    flow.CompileOptions(batch=1, workload_kw={"res": 8}))
 isa = art.ensure_model().isa
@@ -54,7 +62,16 @@ calls = [resolve_device,
          lambda: Simulator(art.chip, isa, engine="torch"),
          lambda: art.evaluate("simulate"),
          lambda: art.evaluate("simulate", engine="torch"),
-         lambda: FleetEvaluator(art.cg)]
+         lambda: FleetEvaluator(art.cg),
+         lambda: ExplorationEngine("tiny_cnn", res=8),
+         lambda: ExplorationEngine("tiny_cnn", engine="torch", res=8),
+         lambda: evaluate_chip(art.cg, default_chip(), "dp",
+                               fidelity="simulate"),
+         lambda: cli.main(["sweep", "tiny_cnn", "--res", "8",
+                           "--no-cache"]),
+         lambda: degradation_curve(art.cg, default_chip(), [0.0]),
+         lambda: flow.calibrate(["tiny_cnn"], default_chip()),
+         lambda: dse.sweep_mg_flit(art.cg)]
 # only the host engines, asked for by name, need no device
 assert art.evaluate("simulate", engine="vector").cycles > 0
 for call in calls:
@@ -77,14 +94,19 @@ def _run(code):
 _SIM_MODULES = ["core.isa", "core.oplevel", "core.codegen", "core.trace",
                 "core.vectorsim", "core.simulator", "core.torchsim",
                 "explore", "explore.fleet"]
+_EXPLORE_MODULES = ["core.dse", "explore.space", "explore.records",
+                    "explore.pareto", "explore.cache", "explore.engine",
+                    "explore.search", "explore.cli", "explore.__main__",
+                    "flow.diskcache", "flow.calibrate", "faults",
+                    "faults.model", "faults.metrics", "faults.evaluate"]
 
 
 def test_imports_no_jax_no_repro():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     walked = proc.stdout.split()
-    assert int(walked[-1]) >= 30                  # every module walked
-    for mod in _SIM_MODULES:
+    assert int(walked[-1]) >= 45                  # every module walked
+    for mod in _SIM_MODULES + _EXPLORE_MODULES:
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -94,7 +116,7 @@ def test_entry_points_raise_without_card():
         pytest.skip("a CUDA device is present: the entry points use it")
     proc = _run(_NO_CARD)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "9"
+    assert proc.stdout.split()[-1] == "16"
 
 
 def test_package_source_names_no_jax_or_repro():
@@ -110,3 +132,65 @@ def test_package_source_names_no_jax_or_repro():
             if mod.split(".")[0] in ("jax", "jaxlib", "repro"):
                 bad.append(f"{path.name}:{n}: {s}")
     assert not bad, bad
+
+
+_CLI_HELP = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["repro_torch.explore", "--help"]
+try:
+    runpy.run_module("repro_torch.explore", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+print("help ok")
+"""
+
+
+def test_explore_cli_help_without_jax_or_repro():
+    proc = _run(_CLI_HELP)
+    assert proc.returncode == 0, proc.stderr
+    assert "python -m repro_torch.explore" in proc.stdout
+    assert "--engine" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.split()[-2:] == ["help", "ok"]
+    main = subprocess.run([sys.executable, "-m", "repro_torch.explore",
+                           "--help"], capture_output=True, text=True,
+                          timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert main.returncode == 0 and "sweep" in main.stdout, main.stderr
+
+
+_PORT_ON_REFERENCE_CACHE = r"""
+import sys
+sys.modules["jax"] = None
+from repro_torch import flow
+from repro_torch.core.arch import default_chip
+pipe = flow.Pipeline(disk_cache=sys.argv[1])
+pipe.compile("tiny_cnn", default_chip(), flow.CompileOptions(
+    strategy="dp", batch=2, workload_kw={"res": 8}))
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+print(pipe.disk.hits, pipe.disk.misses, len(pipe.disk))
+"""
+
+
+def test_reference_disk_cache_entries_never_loaded(tmp_path):
+    """The JAX package's pickles under the port's very pass keys, in the
+    port's cache directory: the port misses them and imports nothing of
+    ``repro`` (or of JAX) while compiling."""
+    from repro import flow as jflow
+    from repro.core.arch import default_chip as j_default_chip
+    root = str(tmp_path / "flow")
+    jpipe = jflow.Pipeline(disk_cache=root)
+    jpipe.compile("tiny_cnn", j_default_chip(), jflow.CompileOptions(
+        strategy="dp", batch=2, workload_kw={"res": 8}))
+    assert len(jpipe.disk) == 2
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _PORT_ON_REFERENCE_CACHE,
+                           root], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0", "2", "2"]
