@@ -77,10 +77,33 @@ script exits non-zero):
    check=True, faults=...)`` for ``FAULT_MODELS`` (stuck-at 1e-3, and
    1e-2 with transient flips) with the kernel's launches counted per run
    (21), the ms of each faulty run against a clean one, then
-   ``degradation_curve`` over ``FAULT_RATES`` (BER, top-1 agreement).
+   ``degradation_curve`` over ``FAULT_RATES`` (BER, top-1 agreement);
+8. the mesh of chips (:func:`mesh_phase`), on the transformer
+   ``BENCH_system.json`` pins: (a) trace fidelity on 1 chip and 2/4/8-chip
+   pipeline and tensor meshes (link ``pcb``) equal to its rows at 9
+   decimals (at its batch of 32); (b) ``SystemArtifact.evaluate(
+   "simulate")`` on 2- and 4-chip pipeline meshes at batch 1, every chip
+   slice decoded on the card, equal to ``engine="vector"`` chip by chip
+   (best of 3 each, the decode split); (c) a 4-mesh with slot 2, then
+   slot 1 failed: the re-plan conserves the work and avoids the slot,
+   trace and simulate (batch 1) report the degradation, torch == vector;
+   (d) ``SystemArtifact.run_func`` (``tiny_cnn`` on 2 and 4 chips, the
+   degraded 4-mesh, a one-layer d128 transformer on 2; batch 2) equal,
+   element for element, to ``run_reference`` with the kernel (its
+   launches counted) and to the plain oracle; (e) the explore engine's
+   6-point mesh sweep at trace fidelity, each record equal to a direct
+   evaluation, scale-out helping, then all from its cache;
+9. serving (:func:`serve_phase`): (a) ``BENCH_serving.json`` rebuilt
+   with the port (policies, engine equivalence, prefill policies, the
+   large trace's digest and decode iterations); (b) ``python -m
+   repro_torch.serve --fidelity simulate --chips 2 --policy both
+   --requests 200``: each bucket's costs equal the same artifacts on the
+   vector engine, the event and array engines' metrics JSON equal (the
+   second run from the table cache); (c) deadlines, shedding and retries
+   on that table, two runs byte-identical.
 
 The ``launches`` of the ``kernels`` record count the main paths of
-phases 3 and 7.  The second-to-last line is the ``{"kernels": [...]}``
+phases 3, 7 and 8.  The second-to-last line is the ``{"kernels": [...]}``
 JSON record and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
 port's sources are not beside this script.
@@ -93,6 +116,7 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -119,6 +143,43 @@ FAULT_MODELS = [{"rate": 1e-3}, {"rate": 1e-2, "transient_rate": 1e-5}]
 FAULT_RATES = (0.0, 1e-3, 1e-2)
 # 7c: the configuration benchmarks/bench_faults.py pins (BENCH_faults.json)
 GOLDEN_FAULTS = ("tiny_cnn", {"res": 8, "c": 8}, 2, 0)
+# phase 8: the mesh, on the transformer BENCH_system.json pins (4 layers,
+# d_model 512, 8 heads, seq 128, vocab 32000; link "pcb"; its rows are
+# at CostParams' default batch of 32)
+MESH_LINK = "pcb"
+MESH_SIM = (2, 4)             # 8b: pipeline meshes at simulate fidelity
+# 8b/8c simulate at batch 1, as phase 6 does: at batch 32 codegen takes
+# about 2 min a mesh and one vector-engine run about 1 min
+MESH_SIM_BATCH = 1
+# 8c: the failed slot of a 2x2 mesh; at full width the pipeline keeps
+# slots 0 and 1, so slot 2 fails beside the plan and slot 1 inside it
+MESH_FAILED = (2, 1)
+# 8d: multi-chip func runs at the sizes the functional ISS can hold (the
+# transformer of tests/test_system.py: 1 layer, d_model 128, seq 16);
+# (label, workload, workload_kw, chips, failed chips), batch 2
+SMALL_TF = {"n_layers": 1, "d_model": 128, "n_heads": 4, "seq": 16,
+            "vocab": 64}
+MESH_FUNC = [("tiny_cnn x2", "tiny_cnn", {}, 2, ()),
+             ("tiny_cnn x4", "tiny_cnn", {}, 4, ()),
+             ("tiny_cnn x4, slot 2 failed", "tiny_cnn", {}, 4, (2,)),
+             ("transformer 1L d128 x2", "transformer", SMALL_TF, 2, ())]
+# phase 9a: the constants of benchmarks/bench_serve.py (BENCH_serving.json)
+SERVE_MODEL = {"n_layers": 2, "d_model": 128, "n_heads": 4, "vocab": 256,
+               "max_prompt": 64, "max_new": 64}
+SERVE_MAX_BATCH = 8
+SERVE_FAULT = {"rate": 300000.0, "n": 200, "seed": 1}
+SERVE_FAULT_KW = {"deadline_s": 0.002, "max_queue": 4, "max_retries": 2,
+                  "retry_backoff_s": 0.0005}
+SERVE_PREFILL = {"rate": 9000.0, "n": 3000, "seed": 11, "min_prompt": 33,
+                 "max_prompt": 64, "min_new": 2, "max_new": 8}
+SERVE_PREFILL_RUN = {"max_batch": 16, "chunk_tokens": 64}
+SERVE_LARGE = {"rate": 5000.0, "n": 120_000, "seed": 9, "min_prompt": 4,
+               "max_prompt": 64, "min_new": 16, "max_new": 1024}
+SERVE_GATED = ("tokens", "throughput_tok_s", "throughput_req_s",
+               "decode_iterations", "peak_decode_batch", "kv_peak_bytes")
+# 9b: the serving CLI at simulate fidelity on a 2-chip pipeline mesh
+SERVE_CLI = ["--fidelity", "simulate", "--chips", "2", "--policy", "both",
+             "--requests", "200"]
 
 
 def log(*a):
@@ -735,6 +796,589 @@ def faults_phase(golden, path, device=None) -> dict:
     return out
 
 
+def decode_s(td) -> float:
+    """Seconds of a ``StageTiming`` dict: host prep and finish, and the
+    copies and stage passes on the device's clock."""
+    return (td["prep_s"] + td["finish_s"]
+            + (td["h2d_ms"] + td["pass_ms"] + td["d2h_ms"]) / 1e3)
+
+
+def same_system_report(a, b) -> bool:
+    """Two ``SystemReport``s agree on every stitched number and, chip
+    by chip, on the simulator's (or trace's) report."""
+    if (a.cycles, a.comm_cycles, a.bottleneck_cycles, a.energy,
+            a.throughput_sps, a.mode, a.n_chips, a.n_failed_chips,
+            a.n_failed_links) != (
+            b.cycles, b.comm_cycles, b.bottleneck_cycles, b.energy,
+            b.throughput_sps, b.mode, b.n_chips, b.n_failed_chips,
+            b.n_failed_links) or len(a.per_chip) != len(b.per_chip):
+        return False
+    for ra, rb in zip(a.per_chip, b.per_chip):
+        if (ra.cycles, ra.energy, ra.throughput_sps) != (
+                rb.cycles, rb.energy, rb.throughput_sps):
+            return False
+        if ra.sim is not None and not (
+                rb.sim is not None and same_report(ra.sim, rb.sim)):
+            return False
+    return True
+
+
+def mesh_simulate(art, label, device=None) -> dict:
+    """``SystemArtifact.evaluate("simulate")`` on the ``torch`` engine
+    (every chip slice's stages decoded on ``device``, the card unless
+    named) against ``engine="vector"``, best of ``REPS_SIM`` each, the
+    torch decode split into host prep, copies, device passes and host
+    finish.  Raises on any difference; returns the measurements and the
+    fastest torch run's report."""
+    stages = sum(len(a.model.stages) for a in art.chips)
+    row = {"chips": art.n_chips, "stages": stages,
+           "codegen_s": sum(a.pass_record("codegen").wall_s
+                            for a in art.chips)}
+    row["vector_s"], vrep = best_of(
+        lambda: art.evaluate("simulate", engine="vector"))
+    runs = []
+    with decodes_counted() as (timing, decoders, sims):
+        for _ in range(REPS_SIM):
+            before = timing.as_dict()
+            t0 = time.perf_counter()
+            rep = art.evaluate("simulate", device=device)
+            runs.append((time.perf_counter() - t0,
+                         {k: v - before[k]
+                          for k, v in timing.as_dict().items()}, rep))
+        fallbacks = sum(d.fallbacks for d in decoders)
+    if (fallbacks or len(sims) != REPS_SIM * art.n_chips
+            or timing.calls != REPS_SIM * stages):
+        raise AssertionError(
+            f"mesh simulate {label}: {len(sims)} torch runs for "
+            f"{REPS_SIM} x {art.n_chips} chips, {timing.calls} stage "
+            f"passes for {REPS_SIM} x {stages} stages, {fallbacks} to the "
+            f"scalar interpreter")
+    for _, _, rep in runs:
+        if not same_system_report(rep, vrep):
+            raise AssertionError(f"mesh simulate {label}: torch != vector: "
+                                 f"{rep.summary()} vs {vrep.summary()}")
+    row["torch_s"], td, rep = min(runs, key=lambda r: r[0])
+    row["torch_decode"] = td
+    row["torch_decode_s"] = decode_s(td)
+    row["report"] = {"cycles": rep.cycles, "comm_cycles": rep.comm_cycles,
+                     "throughput_sps": rep.throughput_sps,
+                     "energy_nj": rep.energy["total"],
+                     "instrs": [r.sim.instrs for r in rep.per_chip]}
+    log(f"mesh simulate {label}: {art.n_chips} chips, {stages} stages "
+        f"(codegen {row['codegen_s']:.2f} s), torch == vector "
+        f"({rep.cycles:.0f} cycles, {rep.comm_cycles:.0f} inter-chip, "
+        f"{rep.throughput_sps:.3f} samples/s); best of {REPS_SIM}: vector "
+        f"{row['vector_s']:.3f} s, torch {row['torch_s']:.3f} s, its decode "
+        f"{row['torch_decode_s']:.3f} s: host prep {td['prep_s']:.3f} s, "
+        f"copies h2d {td['h2d_ms']:.3f} + d2h {td['d2h_ms']:.3f} ms, stage "
+        f"passes {td['pass_ms']:.3f} ms device, host finish "
+        f"{td['finish_s']:.3f} s")
+    return row, rep
+
+
+def mesh_phase(tf_kw=None, golden=True, func_cases=MESH_FUNC,
+               device=None) -> dict:
+    """Phase 8: the mesh of chips on the transformer (``tf_kw``: its
+    workload arguments, the full-width default unless given).  (a) trace
+    fidelity on 1 chip and on 2/4/8-chip pipeline and tensor meshes,
+    against ``BENCH_system.json`` at 9 decimals when ``golden``; (b)
+    simulate fidelity on ``MESH_SIM`` pipeline meshes at batch
+    ``MESH_SIM_BATCH``, torch == vector; (c) a 4-mesh with each slot of
+    ``MESH_FAILED`` failed: the plan, and degraded trace and simulate
+    reports (batch ``MESH_SIM_BATCH``); (d) ``SystemArtifact.run_func`` on ``func_cases``
+    against ``run_reference`` with the kernel (launches counted) and
+    the plain oracle, bit-exact; (e) the explore engine's mesh sweep at
+    trace fidelity, each record against a direct evaluation, then all
+    from its cache.  Raises on any mismatch; returns the measurements
+    and the kernel launches of (d)."""
+    import numpy as np
+    import torch
+    from repro_torch import flow
+    from repro_torch.core import ref, workloads
+    from repro_torch.core.arch import default_chip
+    from repro_torch.explore import ExplorationEngine, mesh_space
+    from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels.ops import cim_mvm
+    from repro_torch.system import SystemConfig, split_pipeline
+
+    cuda = device is None or torch.device(device).type == "cuda"
+    dev = torch.device("cuda", 0) if device is None else \
+        torch.device(device)
+    chip = default_chip()
+    tf_kw = dict(tf_kw or {})
+    seq = tf_kw.get("seq", 128)
+    opts = flow.CompileOptions(workload_kw=tf_kw or None)
+    out = {"launches": 0}
+
+    # (a) trace fidelity, against BENCH_system.json -----------------------
+    meshes = {}
+    for n in (1, 2, 4, 8):
+        entry = {}
+        for mode in (("single",) if n == 1 else ("pipeline", "tensor")):
+            system = None if mode == "single" else SystemConfig.mesh(
+                n, link=MESH_LINK, parallel=mode)
+            t0 = time.perf_counter()
+            art = flow.compile("transformer", chip, opts.replace(
+                fidelity="trace", system=system))
+            compile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rep = art.evaluate()
+            entry[mode] = {
+                "cycles": rep.cycles,
+                "comm_cycles": getattr(rep, "comm_cycles", 0),
+                "throughput_sps": rep.throughput_sps,
+                "tok_s": rep.throughput_sps * seq,
+                "chips_used": getattr(rep, "n_chips", 1),
+                "compile_s": compile_s,
+                "evaluate_s": time.perf_counter() - t0}
+            log(f"mesh trace {n} {mode}: {rep.summary()}; compile "
+                f"{compile_s:.2f} s, evaluate {entry[mode]['evaluate_s']:.3f}"
+                f" s")
+        meshes[str(n)] = entry
+    if golden:
+        want = json.loads((ROOT / "BENCH_system.json").read_text())
+        drift = [f"{n}.{mode}.{k}: {want['meshes'][n][mode][k]} -> {m[k]}"
+                 for n, entry in meshes.items()
+                 for mode, m in entry.items()
+                 for k in ("cycles", "comm_cycles", "throughput_sps",
+                           "tok_s")
+                 if round(float(m[k]), 9)
+                 != round(float(want["meshes"][n][mode][k]), 9)]
+        if sorted(meshes) != sorted(want["meshes"]) or any(
+                sorted(meshes[n]) != sorted(want["meshes"][n])
+                for n in meshes) or drift:
+            raise AssertionError(f"mesh trace != BENCH_system.json: {drift}")
+        log("mesh trace: 7 configurations == BENCH_system.json (cycles, "
+            "comm_cycles, throughput_sps, tok_s at 9 decimals)")
+    if meshes["4"]["tensor"]["comm_cycles"] <= \
+            meshes["2"]["tensor"]["comm_cycles"]:
+        raise AssertionError("tensor comm no longer grows with chip count")
+    out["trace"] = meshes
+
+    # (b) simulate fidelity, pipeline meshes, torch == vector -------------
+    out["simulate"] = {}
+    sim_opts = opts.replace(batch=MESH_SIM_BATCH)
+    for n in MESH_SIM:
+        t0 = time.perf_counter()
+        art = flow.compile("transformer", chip, sim_opts.replace(
+            fidelity="simulate", system=SystemConfig.mesh(n, link=MESH_LINK)))
+        compile_s = time.perf_counter() - t0
+        row, _ = mesh_simulate(art, f"pipeline x{n}", device)
+        row["compile_s"] = compile_s
+        out["simulate"][str(n)] = row
+
+    # (c) the degraded mesh ------------------------------------------------
+    cg = workloads.build("transformer", **tf_kw).condense()
+    out["degraded"] = {}
+    for slot in MESH_FAILED:
+        sysc = SystemConfig.mesh(4, link=MESH_LINK).degrade(
+            failed_chips=(slot,))
+        plan = split_pipeline(cg, chip, sysc)
+        covered = [g for s in plan.slices for g in s.gids]
+        if (plan.total_macs() != cg.total_macs
+                or covered != list(range(len(cg)))
+                or any(s.mesh_slot == slot for s in plan.slices)):
+            raise AssertionError(f"degraded plan: {plan.describe()}")
+        trep = flow.compile("transformer", chip, sim_opts.replace(
+            fidelity="trace", system=sysc)).evaluate()
+        art = flow.compile("transformer", chip, sim_opts.replace(
+            fidelity="simulate", system=sysc))
+        row, srep = mesh_simulate(art, f"pipeline x4, slot {slot} failed",
+                                  device)
+        for rep in (trep, srep):
+            if not (rep.degraded and rep.n_failed_chips == 1
+                    and rep.throughput_sps > 0):
+                raise AssertionError(f"degraded report: {rep.summary()}")
+        row["slots"] = [s.mesh_slot for s in plan.slices]
+        row["hops"] = [t.hops for t in plan.transfers]
+        row["trace_cycles"] = trep.cycles
+        out["degraded"][str(slot)] = row
+        log(f"degraded mesh, slot {slot} failed: plan on slots "
+            f"{row['slots']} (transfer hops {row['hops']}) conserves "
+            f"{cg.total_macs} MACs over {len(cg)} groups; trace "
+            f"{trep.summary()}; simulate {srep.summary()}")
+
+    # (d) multi-chip func mode against the single-chip oracle --------------
+    out["func"] = []
+    for label, model, kw, n, failed in func_cases:
+        system = SystemConfig.mesh(n).degrade(failed_chips=failed)
+        batch = 2
+        art = flow.compile(model, chip, flow.CompileOptions(
+            fidelity="func", batch=batch, workload_kw=kw or None,
+            system=system))
+        cg = art.cg
+        w, b, x = ref.random_init(cg, batch=batch, seed=0, device=dev)
+        q = ref.auto_quant(cg, w, b, x)
+        t0 = time.perf_counter()
+        got = art.run_func(w, b, x, quant=q)
+        func_s = time.perf_counter() - t0
+        n_dyn = sum(1 for g in cg if g.dynamic_weights)
+        expected = len(cg) - n_dyn + batch * n_dyn
+        bsm.bitserial_mvm.launches = 0
+        kernel = ref.run_reference(cg, w, b, q, x, matmul=cim_mvm)
+        n_launched = bsm.bitserial_mvm.launches
+        plain = ref.run_reference(cg, w, b, q, x)
+        last = len(cg) - 1
+        bad = {}
+        for name, oracle in (("kernel", kernel), ("plain", plain)):
+            want = oracle[last].reshape(batch, -1).cpu().numpy()
+            bad[name] = (int(np.sum(got.final != want))
+                         if got.final.shape == want.shape else -1)
+        if (cuda and n_launched != expected) or any(bad.values()) \
+                or art.n_chips < 2 or not art.plan.transfers:
+            raise AssertionError(
+                f"mesh func {label}: {bad} mismatching elements, "
+                f"{n_launched} launches (expected {expected}), "
+                f"{art.n_chips} chips")
+        out["launches"] += n_launched
+        out["func"].append({"case": label, "chips": art.n_chips,
+                            "transfers": len(art.plan.transfers),
+                            "final_elements": int(got.final.size),
+                            "mismatches": bad, "launches": n_launched,
+                            "run_func_s": func_s,
+                            "instrs": [r.instrs for r in got.reports]})
+        log(f"mesh func {label}: run_func on {art.n_chips} chips "
+            f"({len(art.plan.transfers)} cut transfers, "
+            f"{func_s:.3f} s) == run_reference with the kernel "
+            f"({n_launched} launches) == the plain oracle: 0 of "
+            f"{got.final.size} elements differ")
+
+    # (e) the mesh design space, through the explore engine ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = ExplorationEngine("transformer", cache=tmp, device=device,
+                                **tf_kw)
+        pts = mesh_space(chips=(1, 2, 4),
+                         links=("interposer", "pcb")).points()
+        t0 = time.perf_counter()
+        recs = eng.evaluate(pts, fidelity="trace")
+        sweep_s = time.perf_counter() - t0
+        if len(recs) != 6 or any(r.error for r in recs):
+            raise AssertionError(f"mesh sweep: {len(recs)} records, errors "
+                                 f"{[r.error for r in recs if r.error]}")
+        for r in recs:
+            pt = r.point
+            rep = flow.compile("transformer", pt.chip(), opts.replace(
+                strategy=pt.strategy, params=eng.params, fidelity="trace",
+                system=pt.system())).evaluate()
+            if (r.cycles, r.energy, r.throughput_sps) != (
+                    rep.cycles, rep.energy, rep.throughput_sps):
+                raise AssertionError(f"mesh sweep {pt.chips} {pt.link}: "
+                                     f"{r.cycles} != direct {rep.cycles}")
+        by = {(r.point.chips, r.point.link): r for r in recs}
+        if not (by[(2, "interposer")].throughput_sps
+                > by[(1, "interposer")].throughput_sps
+                and by[(2, "interposer")].cycles <= by[(2, "pcb")].cycles):
+            raise AssertionError("mesh sweep: scale-out no longer helps")
+        t0 = time.perf_counter()
+        again = eng.evaluate(pts, fidelity="trace")
+        cached_s = time.perf_counter() - t0
+        if not all(r.cache_hit for r in again) or \
+                [r.cycles for r in again] != [r.cycles for r in recs]:
+            raise AssertionError("mesh sweep: second pass not all cached")
+    out["sweep"] = {"points": len(recs), "wall_s": sweep_s,
+                    "cached_wall_s": cached_s,
+                    "records": {f"{k[0]} {k[1]}": [r.cycles,
+                                                   r.throughput_sps]
+                                for k, r in by.items()}}
+    log(f"mesh sweep: 6 trace records == direct evaluations in "
+        f"{sweep_s:.3f} s; again from the cache in {cached_s:.3f} s; "
+        + "; ".join(f"{k[0]} chips {k[1]}: {r.throughput_sps:.3f} "
+                    f"samples/s" for k, r in by.items()))
+    return out
+
+
+@contextlib.contextmanager
+def serve_captured():
+    """Within the block, every ``StepCostTable`` built, the artifacts
+    its buckets compiled (``(table, workload, kw, artifact)``) and the
+    wall time of each ``ServeSim.run`` are recorded."""
+    from repro_torch.serve import trace_replay, workload
+    tables, arts, replays = [], [], []
+    saved = (workload.StepCostTable.__init__,
+             workload.StepCostTable._compile, trace_replay.ServeSim.run)
+
+    def init(self, *a, **kw):
+        tables.append(self)
+        saved[0](self, *a, **kw)
+
+    def compile_(self, wl, kw):
+        art = saved[1](self, wl, kw)
+        arts.append((self, wl, dict(kw), art))
+        return art
+
+    def run(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return saved[2](self, *a, **kw)
+        finally:
+            replays.append(time.perf_counter() - t0)
+
+    workload.StepCostTable.__init__ = init
+    workload.StepCostTable._compile = compile_
+    trace_replay.ServeSim.run = run
+    try:
+        yield tables, arts, replays
+    finally:
+        (workload.StepCostTable.__init__, workload.StepCostTable._compile,
+         trace_replay.ServeSim.run) = saved
+
+
+def run_serve_cli(argv) -> tuple:
+    """``(s, stdout)`` of ``repro_torch.serve.__main__.main(argv)``,
+    which must return 0."""
+    from repro_torch.serve.__main__ import main as serve_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"serve {argv}: exit {rc}")
+    return wall, buf.getvalue()
+
+
+def serving_golden() -> dict:
+    """Phase 9a: ``BENCH_serving.json`` rebuilt with the port (trace
+    fidelity, the committed trace, synthetic tables for the prefill and
+    large sections), compared at the keys and rounding its gate uses.
+    Raises on any drift; returns the measurements."""
+    import warnings
+    from repro_torch.serve import (ServeModelCfg, ServeSim, StepCostTable,
+                                   load_trace, make_policy, metrics_json,
+                                   poisson_trace)
+
+    want = json.loads((ROOT / "BENCH_serving.json").read_text())
+
+    def table_from_costs(max_new, decode_base, decode_step, decode_per,
+                         per_step):
+        cfg = ServeModelCfg(max_prompt=64, max_new=max_new)
+        pb = [1, 2, 4, 8, 16, 32, 64]
+        db, b = [], 1
+        while b < cfg.max_seq:
+            db.append(b)
+            b *= 2
+        db.append(cfg.max_seq)
+        return StepCostTable.from_costs(
+            cfg, prefill_s={b: 2e-6 * b for b in pb},
+            decode_base_s={b: decode_base + decode_step * b for b in db},
+            decode_per_seq_s={b: decode_per + per_step * b for b in db},
+            prefill_base_s={b: 1.5e-6 * b for b in pb},
+            prefill_per_seq_s={b: 0.5e-6 * b for b in pb})
+
+    def run(table, trace, policy="continuous", max_batch=SERVE_MAX_BATCH,
+            **kw):
+        sim = ServeSim(table, make_policy(policy, max_batch), **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return sim.run(trace)
+
+    def equiv(table, trace, policy="continuous", **kw):
+        got = []
+        for eng in ("event", "array"):
+            m = dict(run(table, trace, policy, engine=eng, **kw))
+            m.pop("engine")
+            got.append(metrics_json(m))
+        return got[0] == got[1]
+
+    out = {}
+    t0 = time.perf_counter()
+    table = StepCostTable(ServeModelCfg(**SERVE_MODEL), fidelity="trace")
+    out["table_s"] = time.perf_counter() - t0
+    trace = load_trace(str(ROOT / "benchmarks" / "serving_trace.json"))
+    t0 = time.perf_counter()
+    policies = {p: run(table, trace, p) for p in ("static", "continuous")}
+    fault_trace = poisson_trace(**SERVE_FAULT)
+    equivalence = {
+        "static": equiv(table, trace, "static"),
+        "continuous": equiv(table, trace, "continuous"),
+        "degraded": equiv(table, fault_trace, "continuous",
+                          **SERVE_FAULT_KW)}
+    ptable = table_from_costs(SERVE_PREFILL["max_new"], 10e-6, 0.0, 1e-6,
+                              0.0)
+    ptrace = poisson_trace(**SERVE_PREFILL)
+    prefill = {p: run(ptable, ptrace, prefill_policy=p,
+                      **SERVE_PREFILL_RUN)
+               for p in ("fifo", "batched", "chunked")}
+    out["replay_s"] = time.perf_counter() - t0
+    large = poisson_trace(**SERVE_LARGE)
+    sha = hashlib.sha256(json.dumps(
+        [[r.rid, r.t_arrive, r.prompt_len, r.gen_len]
+         for r in large]).encode()).hexdigest()
+    t0 = time.perf_counter()
+    iters = run(table_from_costs(SERVE_LARGE["max_new"], 30e-6, 0.01e-6,
+                                 2e-6, 0.002e-6), large)["decode_iterations"]
+    out["large_replay_s"] = time.perf_counter() - t0
+
+    def r9(x):
+        return round(float(x), 9)
+
+    drift = []
+    for name, m in policies.items():
+        g = want["policies"][name]
+        drift += [f"{name}.{k}" for k in SERVE_GATED if r9(m[k]) != r9(g[k])]
+        drift += [f"{name}.{fam}.{q}"
+                  for fam in ("ttft_s", "tpot_s", "e2e_s")
+                  for q in ("p50", "p95", "p99", "mean")
+                  if r9(m[fam][q]) != r9(g[fam][q])]
+    drift += [f"equivalence.{k}" for k, ok in equivalence.items() if not ok]
+    drift += [f"prefill.{p}.ttft.{q}" for p, m in prefill.items()
+              for q in ("p50", "p99")
+              if r9(m["ttft_s"][q])
+              != r9(want["prefill"]["policies"][p]["ttft_s"][q])]
+    if sha != want["large"]["trace_sha256"]:
+        drift.append("large.trace_sha256")
+    if iters != want["large"]["decode_iterations"]:
+        drift.append(f"large.decode_iterations {iters}")
+    if sorted(policies) != sorted(want["policies"]) or drift:
+        raise AssertionError(f"serving != BENCH_serving.json: {drift}")
+    out["policies"] = {p: {k: m[k] for k in ("throughput_tok_s", "ttft_s",
+                                             "tpot_s")}
+                       for p, m in policies.items()}
+    log(f"serving golden: policies, equivalence, prefill and the large "
+        f"trace ({SERVE_LARGE['n']} requests, {iters} decode iterations, "
+        f"sha256 {sha[:12]}) == BENCH_serving.json; trace table "
+        f"{out['table_s']:.2f} s, replays {out['replay_s']:.3f} s, large "
+        f"replay {out['large_replay_s']:.3f} s")
+    return out
+
+
+def serve_phase(cli_extra=(), golden=True, device=None) -> dict:
+    """Phase 9: (a) :func:`serving_golden` when ``golden``; (b) the
+    serving CLI at simulate fidelity on a 2-chip pipeline mesh
+    (``SERVE_CLI`` plus ``cli_extra``; the table's decodes on ``device``,
+    the card unless named): every bucket's costs equal the same
+    artifacts evaluated with ``engine="vector"``, and the metrics JSON
+    of ``--engine event`` equals ``--engine array``'s (a second run,
+    its table from the flow cache); (c) serving degradation on that
+    table: deadlines, shedding and retries, two runs byte-identical.
+    Raises on any mismatch; returns the measurements."""
+    import warnings
+    from repro_torch.flow import default_pipeline, diskcache
+    from repro_torch.serve import (ServeSim, make_policy, metrics_json,
+                                   poisson_trace)
+
+    out = {}
+    if golden:
+        out["golden"] = serving_golden()
+    dev_arg = [] if device is None else ["--device", str(device)]
+    pipe = default_pipeline()
+    saved = (os.environ.get(diskcache.ENV_VAR), pipe.disk)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = SERVE_CLI + list(cli_extra) + dev_arg + [
+            "--flow-cache", str(Path(tmp) / "flow")]
+        try:
+            with serve_captured() as (tables, arts, replays), \
+                    decodes_counted() as (timing, decoders, sims):
+                wall, text = run_serve_cli(
+                    argv + ["--json", str(Path(tmp) / "array.json")])
+            table = tables[0]
+            fallbacks = sum(d.fallbacks for d in decoders)
+            td = timing.as_dict()
+            if (table.cache_hit or table.system is None
+                    or table.fidelity != "simulate" or fallbacks
+                    or not sims or timing.calls != sum(sims)):
+                raise AssertionError(
+                    f"serve CLI: cache hit {table.cache_hit}, system "
+                    f"{table.system}, {len(sims)} torch runs, "
+                    f"{timing.calls} stage passes, {fallbacks} to the "
+                    f"scalar interpreter")
+            with serve_captured() as (tables2, _, replays2):
+                wall2, text2 = run_serve_cli(
+                    argv + ["--engine", "event",
+                            "--json", str(Path(tmp) / "event.json")])
+        finally:
+            if saved[0] is None:
+                os.environ.pop(diskcache.ENV_VAR, None)
+            else:
+                os.environ[diskcache.ENV_VAR] = saved[0]
+            pipe.disk = saved[1]
+        if not tables2[0].cache_hit:
+            raise AssertionError("serve CLI: second run missed the table "
+                                 "cache")
+        docs = {}
+        for eng in ("array", "event"):
+            doc = json.loads((Path(tmp) / f"{eng}.json").read_text())
+            for m in doc.values():
+                if m.pop("engine") != eng:
+                    raise AssertionError(f"serve CLI: engine key {eng}")
+            docs[eng] = metrics_json(doc)
+        if docs["array"] != docs["event"]:
+            raise AssertionError("serve CLI: --engine event != array")
+
+    # every bucket's costs against the same artifacts on the vector engine
+    k = table.fit_batch
+    hz = table.chip.clock_ghz * 1e9
+    want = {n: {} for n in ("prefill_s", "prefill_base_s",
+                            "prefill_per_seq_s", "decode_base_s",
+                            "decode_per_seq_s")}
+    t0 = time.perf_counter()
+    for _, wl, kw, art in arts:
+        c1 = float(art.evaluate(engine="vector").cycles)
+        ck = float(art.replace_options(batch=k).evaluate(
+            engine="vector").cycles)
+        per = max((ck - c1) / (k - 1), 0.0)
+        if wl == "transformer":
+            b = kw["seq"]
+            want["prefill_s"][b] = c1 / hz
+            want["prefill_per_seq_s"][b] = per / hz
+            want["prefill_base_s"][b] = max(c1 - per, 0.0) / hz
+        else:
+            b = kw["kv_len"]
+            want["decode_per_seq_s"][b] = per / hz
+            want["decode_base_s"][b] = max(c1 - per, 0.0) / hz
+    vector_s = time.perf_counter() - t0
+    for name, costs in want.items():
+        if getattr(table, "_" + name) != costs:
+            raise AssertionError(f"serve table {name}: torch "
+                                 f"{getattr(table, '_' + name)} != vector "
+                                 f"{costs}")
+    buckets = len(table.prefill_buckets) + len(table.decode_buckets)
+    replay_s = sum(replays)
+    build_s = wall - replay_s
+    out["cli"] = {"wall_s": wall, "table_build_s": build_s,
+                  "table_decode": td, "table_decode_s": decode_s(td),
+                  "torch_runs": len(sims), "stage_passes": timing.calls,
+                  "replay_s": replay_s, "replays": len(replays),
+                  "cached_wall_s": wall2, "cached_replay_s": sum(replays2),
+                  "buckets": buckets, "vector_check_s": vector_s,
+                  "table": table.to_dict()}
+    log(f"serve CLI (simulate, 2-chip pipeline mesh): {buckets} buckets "
+        f"x 2 batches on the torch engine == the same artifacts on the "
+        f"vector engine ({vector_s:.2f} s); event == array metrics JSON; "
+        f"wall {wall:.2f} s: table build {build_s:.2f} s ({len(sims)} "
+        f"simulator runs, {timing.calls} stage passes; decode "
+        f"{decode_s(td):.3f} s: host prep {td['prep_s']:.3f} s, copies "
+        f"{td['h2d_ms'] + td['d2h_ms']:.3f} ms, passes {td['pass_ms']:.3f} "
+        f"ms device, host finish {td['finish_s']:.3f} s), replay "
+        f"{replay_s:.3f} s for {len(replays)} policies; second run from "
+        f"the table cache {wall2:.2f} s")
+    for line in text.splitlines():
+        if line.startswith("policy="):
+            log(f"  {line}")
+
+    # (c) serving degradation on that table
+    hot = poisson_trace(**SERVE_FAULT)
+    got = []
+    for _ in range(2):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got.append(ServeSim(table, make_policy("continuous",
+                                                   SERVE_MAX_BATCH),
+                                **SERVE_FAULT_KW).run(hot))
+    m = got[0]
+    if not (m["shed_requests"] > 0 and m["timeout_requests"] > 0
+            and m["retries"] > 0
+            and m["requests"] + m["shed_requests"] == len(hot)
+            and metrics_json(got[0]) == metrics_json(got[1])):
+        raise AssertionError(f"serving degradation: {m}")
+    out["degradation"] = {k: m[k] for k in (
+        "requests", "shed_requests", "timeout_requests", "retries",
+        "goodput_tok_s", "throughput_tok_s")}
+    log(f"serving degradation ({SERVE_FAULT}, {SERVE_FAULT_KW}): "
+        f"{out['degradation']}; two runs byte-identical")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1033,6 +1677,21 @@ def main() -> int:
     log(f"explore and faults phase done; kernel launches: {launches_total}"
         f" on the main paths ({launches_total - report['faults']['launches']}"
         f" in phase 3, {report['faults']['launches']} in phase 7) [{card}]")
+
+    # 8. the mesh of chips ---------------------------------------------------
+    t0 = time.perf_counter()
+    report["mesh"] = mesh_phase()
+    launches_total += report["mesh"]["launches"]
+    report["mesh"]["wall_s"] = time.perf_counter() - t0
+    log(f"mesh phase done in {report['mesh']['wall_s']:.1f} s; "
+        f"{report['mesh']['launches']} kernel launches in 8d [{card}]")
+
+    # 9. serving ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    report["serve"] = serve_phase()
+    report["serve"]["wall_s"] = time.perf_counter() - t0
+    log(f"serving phase done in {report['serve']['wall_s']:.1f} s; kernel "
+        f"launches on the main paths: {launches_total} [{card}]")
 
     kernels = [{
         "name": "bitserial_mvm",

@@ -26,7 +26,9 @@ Quickstart::
     result, screened = successive_halving(eng, default_space(), top_k=4)
     front = pareto_frontier(screened, axes=("cycles", "energy"))
 
-Multi-chip points (``mesh_space``) wait for the port's ``system`` slice.
+Multi-chip points (``mesh_space``) compile through
+:mod:`repro_torch.system`; at simulate fidelity they run per point, in
+this process, each chip slice decoded on the card.
 """
 
 from ..core.machine import Calibration

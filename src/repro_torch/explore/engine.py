@@ -85,7 +85,7 @@ def evaluate_chip(cg: CondensedGraph, chip: ChipConfig, strategy: str,
     Runs on the :mod:`repro_torch.flow` pass pipeline, so a point promoted
     from the analytic screen to the simulator in the same process
     reuses its cached partition instead of re-partitioning.  With a
-    ``system`` (a ``SystemConfig``: the port's ``system`` slice), the chip is
+    ``system`` (:class:`repro_torch.system.SystemConfig`), the chip is
     replicated over the mesh and the score covers the whole multi-chip
     plan.  The simulate fidelity runs ``engine`` with its stage decode
     on ``device`` (CUDA unless named; raises without a card).  Returns

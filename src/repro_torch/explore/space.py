@@ -1,9 +1,8 @@
 """Declarative design space over ``ChipConfig`` x compile strategy.
 
 Host code copied from :mod:`repro.explore.space` (the JAX package).
-Multi-chip points (``chips > 1``) enumerate as there, but need the
-port's ``system`` slice: :meth:`DesignPoint.system` raises
-:class:`NotImplementedError` for them until it lands.
+Multi-chip points (``chips > 1``) build their mesh with
+:class:`repro_torch.system.SystemConfig`.
 
 The exploration subsystem (paper §IV-C) treats a candidate design as a
 :class:`DesignPoint` — a small, hashable record of the architectural
@@ -65,7 +64,7 @@ class DesignPoint:
     flit_bytes: int = 8
     local_mem_kb: int = 512
     strategy: str = "generic"
-    # multi-chip scale-out axes (the system slice); chips=1 keeps the
+    # multi-chip scale-out axes (repro_torch.system); chips=1 keeps the
     # classic single-chip path (and its historical cache keys)
     chips: int = 1
     link: str = "pcb"
@@ -124,14 +123,12 @@ class DesignPoint:
                                     router_latency=self.router_latency))
 
     def system(self) -> Optional[Any]:
-        """``None`` for single-chip points; a multi-chip point's mesh
-        needs the port's ``system`` slice and raises until then."""
+        """``SystemConfig`` mesh for multi-chip points, else ``None``."""
         if self.chips <= 1:
             return None
-        raise NotImplementedError(
-            f"multi-chip design points (chips={self.chips}) need "
-            f"repro_torch.system, which is not ported yet (the system "
-            f"slice)")
+        from ..system import SystemConfig
+        return SystemConfig.mesh(self.chips, link=self.link,
+                                 parallel=self.parallel)
 
     @property
     def total_macros(self) -> int:
@@ -193,11 +190,9 @@ class DesignSpace:
     # -- validity -----------------------------------------------------------
 
     def is_valid(self, pt: DesignPoint) -> bool:
-        # a multi-chip point's mesh is validated by the system slice
-        # (SystemConfig); until then only its chip is checked here and
-        # the engine refuses the point
         try:
             pt.chip()
+            pt.system()
         except (ArchError, ValueError):
             return False
         return all(c(pt) for c in self.constraints)

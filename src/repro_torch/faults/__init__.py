@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`repro.faults` (the JAX package), bit-exact with it:
 the same seeds draw the same fault sets, and the faulty oracle outputs
-and degradation rows are equal.  Mesh failover waits for the port's
-``system`` slice.
+and degradation rows are equal.  Mesh failover is
+:meth:`repro_torch.system.SystemConfig.degrade`; serving degradation
+(deadlines, shedding, retries) is :class:`repro_torch.serve.ServeSim`.
 
 Reliability is a first-class design axis for digital CIM: the compute
 arrays suffer stuck-at and transient bit faults, global memory takes

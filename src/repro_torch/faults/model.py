@@ -74,8 +74,8 @@ class FaultModel:
     flips accumulator bits per MVM evaluation; ``gmem_rate`` flips one
     bit per affected 32-bit global-memory word.  ``failed_chips`` /
     ``failed_links`` name dead mesh slots / inter-chip links for
-    system-level failover (the JAX package's :mod:`repro.system`; the
-    port's ``system`` slice is not there yet).
+    system-level failover (see :mod:`repro_torch.system`:
+    :meth:`SystemConfig.degrade` re-plans around them).
     """
 
     rate: float = 0.0            # stuck-at, per CIM weight bit

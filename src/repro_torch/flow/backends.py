@@ -82,6 +82,9 @@ class Backend:
     """Evaluation backend protocol: ``evaluate(artifact) -> EvalReport``."""
 
     name: str = "backend"
+    # whether the backend steps per-core ISA streams (a tensor-parallel
+    # mesh has none per shard, so its SystemArtifact refuses it)
+    requires_model: bool = False
 
     def evaluate(self, artifact: Any, **kw: Any) -> EvalReport:
         raise NotImplementedError
@@ -144,6 +147,8 @@ class SimulatorBackend(Backend):
     :class:`repro_torch.faults.PhysicalCimFaults` injecting stuck bits
     at ``CIM_LOAD`` time.
     """
+
+    requires_model = True
 
     def __init__(self, mode: str = "perf", name: Optional[str] = None,
                  engine: str = "auto") -> None:

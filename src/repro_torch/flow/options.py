@@ -54,13 +54,23 @@ class CompileOptions:
     # written by flow.calibrate(..., save=name)) and is resolved to the
     # Calibration it holds at construction time.
     calibration: Union[Calibration, str, None] = None
-    # multi-chip scale-out (a SystemConfig) needs the system slice
+    # Multi-chip scale-out: a repro_torch.system.SystemConfig routes the
+    # compile through the system-level partitioner (``system:pipeline``
+    # / ``system:tensor`` passes) and makes ``flow.compile`` return a
+    # SystemArtifact stitching per-chip artifacts over inter-chip
+    # links.  ``None`` (default) is the classic single-chip path.
     system: Optional[Any] = None
 
     def __post_init__(self) -> None:
         if self.fidelity not in FIDELITIES:
             raise ValueError(f"fidelity must be one of {FIDELITIES}, "
                              f"got {self.fidelity!r}")
+        if self.system is not None and (
+                not hasattr(self.system, "to_dict")
+                or not hasattr(self.system, "n_chips")):
+            raise TypeError(
+                f"system must be a repro_torch.system.SystemConfig, got "
+                f"{type(self.system).__name__}")
         if isinstance(self.calibration, str):
             from .calibrate import load_calibration    # late: cycle
             object.__setattr__(self, "calibration",

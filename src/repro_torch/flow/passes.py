@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 from ..core import workloads
@@ -62,6 +62,8 @@ class PipelineContext:
     cg: Optional[CondensedGraph] = None
     partition: Optional[PartitionResult] = None
     model: Optional[CompiledModel] = None
+    # other passes' outputs (``system:<mode>`` stores its plan here)
+    extras: Dict[str, Any] = field(default_factory=dict)
 
 
 class Pass:

@@ -19,10 +19,10 @@ options-prefix)`` — only the option fields a pass declares in
 (:class:`~repro_torch.flow.diskcache.PassDiskCache`) shares pass outputs
 across processes.  Codegen runs eagerly for the simulator fidelities
 (``"simulate"``/``"func"``) and on demand otherwise
-(:meth:`Artifact.ensure_model`).
-
-Not ported yet, and raising :class:`NotImplementedError` where reached:
-the multi-chip ``system`` path.
+(:meth:`Artifact.ensure_model`).  ``options.system`` (a
+:class:`~repro_torch.system.SystemConfig`) routes the compile through the
+``system:<mode>`` partition pass and returns a
+:class:`~repro_torch.system.SystemArtifact`.
 """
 
 from __future__ import annotations
@@ -51,10 +51,6 @@ from .passes import (Pass, PassRecord, PipelineContext, get_pass,
 
 __all__ = ["Artifact", "Pipeline", "compile", "compile_many",
            "default_pipeline", "workload_fingerprint"]
-
-def _missing(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (the {slice_} slice)")
 
 
 def workload_fingerprint(workload: Any) -> str:
@@ -284,8 +280,8 @@ class Pipeline:
         elif kw:
             options = options.replace(**kw)
         if options.system is not None:
-            raise _missing("multi-chip compilation (options.system)",
-                           "system")
+            return [self._compile_system(workload, chip, options)
+                    for chip in chips]
         try:
             part_pass = get_pass(partition_pass_name(options.strategy))
         except KeyError:
@@ -321,6 +317,51 @@ class Pipeline:
                 art.ensure_model()
             arts.append(art)
         return arts
+
+    def _compile_system(self, workload: Any, chip: ChipConfig,
+                        options: CompileOptions) -> Any:
+        """The ``options.system`` path: condense once, run the
+        ``system:<mode>`` partition pass, then compile each chip slice
+        through the ordinary single-chip pipeline (``system=None``) —
+        a 1x1 mesh therefore produces an inner artifact bit-identical
+        to the classic path.  Returns a
+        :class:`repro_torch.system.SystemArtifact`.
+        """
+        # imported lazily: repro_torch.system imports repro_torch.flow at
+        # module level, so flow -> system must stay function-local
+        from ..system import SystemArtifact
+        from ..system.passes import system_pass_name
+
+        sysc = options.system
+        if sysc.parallel == "tensor" and sysc.n_chips > 1 \
+                and options.fidelity in ("simulate", "func"):
+            raise ValueError(
+                "tensor-parallel plans support analytic/trace fidelity "
+                "only (shards are group-level scaled condensed graphs "
+                "with no per-shard ISA streams); use "
+                "parallel='pipeline' for simulator fidelities")
+
+        base = hashlib.sha256(
+            workload_fingerprint(workload).encode()).hexdigest()
+        ctx0 = PipelineContext(workload=workload, chip=chip,
+                               options=options)
+        _, cond_rec, cond_key = self._run_pass(get_pass("condense"),
+                                               ctx0, base)
+        ctx = PipelineContext(workload=workload, chip=chip,
+                              options=options, cg=ctx0.cg)
+        key = hashlib.sha256(
+            f"{cond_key}|chip:{_chip_fingerprint(chip)}"
+            .encode()).hexdigest()
+        plan, rec, key = self._run_pass(
+            get_pass(system_pass_name(sysc.parallel)), ctx, key)
+
+        inner = options.replace(system=None)
+        arts = [self.compile(sl.workload if sl.workload is not None
+                             else workload, chip, inner)
+                for sl in plan.slices]
+        return SystemArtifact(workload=workload, chip=chip,
+                              options=options, cg=ctx.cg, plan=plan,
+                              chips=arts, trace=[cond_rec, rec])
 
 
 _DEFAULT_PIPELINE: Optional[Pipeline] = None

@@ -2,8 +2,8 @@
 disk cache and calibration against the JAX package.
 
 * cache keys are the reference's digests, with and without calibration;
-* the stock spaces enumerate the same points; multi-chip points are
-  refused (``NotImplementedError``) until the system slice;
+* the stock spaces enumerate the same points; multi-chip points
+  evaluate through the port's ``system`` package as in the reference;
 * engine records equal the reference's at ``analytic`` and ``trace``
   (serial and pooled) and, at ``simulate`` on the CPU, the port's
   default engine equals the reference's ``vector`` engine; the fleet
@@ -154,18 +154,25 @@ def test_point_roundtrip_and_macro_count():
 
 
 def test_mesh_points_refused_until_the_system_slice(tmp_path):
+    """Multi-chip points were refused until the system slice; now they
+    evaluate on every path (with and without a result cache; per point
+    when the engine is the fleet), and their records equal the
+    reference's."""
     pts = mesh_space().points()
     multi = [p for p in pts if p.chips > 1]
     assert multi and DesignPoint().system() is None
+    jpts = [_to_ref_point(p) for p in pts]
     for cache in (None, ResultCache(str(tmp_path / "c"))):
         eng = make_engine(cache=cache)
         for fid in ("analytic", "simulate"):
-            with pytest.raises(NotImplementedError, match="system"):
-                eng.evaluate(pts, fid)
-        with pytest.raises(NotImplementedError):
-            eng.evaluate([multi[0]])
-    with pytest.raises(NotImplementedError):
-        make_engine(engine="torch").evaluate(multi, "simulate")
+            got = eng.evaluate(pts, fid)
+            assert all(r.error is None for r in got)
+            _same_records(got, make_ref_engine().evaluate(jpts, fid))
+    got = make_engine(engine="torch").evaluate(multi, "simulate")
+    want = make_ref_engine(engine="vector").evaluate(
+        [_to_ref_point(p) for p in multi], "simulate")
+    assert [(r.cycles, r.energy, r.throughput_sps) for r in got] == \
+        [(r.cycles, r.energy, r.throughput_sps) for r in want]
 
 
 # ---------------------------------------------------------------------------

@@ -9,15 +9,21 @@ package's ``repro.faults``.
 * the functional ISS with corrupted weights or ``PhysicalCimFaults``
   equals the reference's ISS;
 * ``degradation_curve`` equals the reference's rows and
-  ``BENCH_faults.json``.
+  ``BENCH_faults.json``;
+* a degraded mesh (``SystemConfig.degrade``) re-plans around its failed
+  chips and links as the reference does, and its func runs stay
+  bit-exact;
+* serving degradation (deadlines, shedding, retries, the saturation
+  warning and the ``max_sim_s`` cap) gives the reference's metrics.
 
-Mirrors the first ten tests of ``tests/test_faults.py``; the
-degraded-mesh and serving tests wait for the port's ``system`` and
-``serve`` slices.  Every comparison is exact (tolerance 0).
+Mirrors ``tests/test_faults.py``; the serving tests use a one-layer
+model (the reference's two-layer table takes tens of seconds to
+compile).  Every comparison is exact (tolerance 0).
 """
 
 import hashlib
 import json
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +42,13 @@ from repro.faults import corrupt_gmem as j_corrupt_gmem
 from repro.faults import degradation_curve as j_degradation_curve
 from repro.faults import residual_rate as j_residual_rate
 from repro.faults import resolve_faults as j_resolve_faults
+from repro.serve import ServeModelCfg as JServeModelCfg
+from repro.serve import ServeSim as JServeSim
+from repro.serve import StepCostTable as JStepCostTable
+from repro.serve import make_policy as j_make_policy
+from repro.serve import metrics_json as j_metrics_json
+from repro.system import SystemConfig as JSystemConfig
+from repro.system import split_pipeline as j_split_pipeline
 from repro_torch import flow
 from repro_torch.convert import from_reference
 from repro_torch.core import ref, workloads
@@ -46,6 +59,10 @@ from repro_torch.faults import (FaultModel, PhysicalCimFaults,
                                 bit_error_rate, corrupt_gmem,
                                 degradation_curve, residual_rate,
                                 resolve_faults, top1_agreement)
+from repro_torch.serve import (ServeModelCfg, ServeSim, StepCostTable,
+                               make_policy, metrics_json, poisson_trace)
+from repro_torch.system import SystemConfig, split_pipeline
+from repro_torch.system.passes import SystemPartitionPass
 
 torch.set_num_threads(1)
 
@@ -359,3 +376,143 @@ def test_degradation_curve_transient_base():
                                base=JFaultModel(transient_rate=1e-3,
                                                 seed=4), **kw)
     assert got == want and got[0]["ber"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# mesh failover
+# ---------------------------------------------------------------------------
+
+
+def test_degraded_mesh_replan_conserves_work():
+    cg = workloads.build("transformer").condense()
+    sysc = SystemConfig.mesh(4).degrade(failed_chips=(2,))
+    assert sysc.alive_slots == (0, 1, 3) and sysc.n_alive == 3
+    plan = split_pipeline(cg, default_chip(), sysc)
+    assert plan.total_macs() == cg.total_macs
+    assert all(s.mesh_slot != 2 for s in plan.slices)
+    covered = [g for s in plan.slices for g in s.gids]
+    assert covered == list(range(len(cg)))
+    jplan = j_split_pipeline(
+        jworkloads.build("transformer").condense(), j_default_chip(),
+        JSystemConfig.mesh(4).degrade(failed_chips=(2,)))
+    dump = SystemPartitionPass("pipeline").dump
+    assert dump(plan) == dump(jplan)
+    assert [s.mesh_slot for s in plan.slices] == \
+        [s.mesh_slot for s in jplan.slices]
+
+
+def test_degraded_mesh_func_bit_exact_tiny_cnn():
+    """1 failed chip of a 2x2 mesh: the re-planned pipeline runs
+    func-mode bit-exact against the port's oracle and the reference's
+    ``run_func``; the degraded report equals the reference's."""
+    sysc = SystemConfig.mesh(4).degrade(failed_chips=(1,))
+    jsysc = JSystemConfig.mesh(4).degrade(failed_chips=(1,))
+    art = flow.compile("tiny_cnn", default_chip(), flow.CompileOptions(
+        fidelity="func", batch=2, system=sysc))
+    jart = jflow.compile("tiny_cnn", j_default_chip(), jflow.CompileOptions(
+        fidelity="func", batch=2, system=jsysc))
+    assert art.n_chips <= 3 and art.n_chips == jart.n_chips
+    w, b, x = jref.random_init(jart.cg, batch=2, seed=17)
+    q = jref.auto_quant(jart.cg, w, b, x)
+    got = art.run_func(w, b, x, quant=q)
+    np.testing.assert_array_equal(got.final,
+                                  jart.run_func(w, b, x, quant=q).final)
+    tw, tb, tx, tq = from_reference(w, b, x, q, CPU)
+    oracle = ref.run_reference(art.cg, tw, tb, tq, tx)
+    last = len(art.cg) - 1
+    for s in range(2):
+        np.testing.assert_array_equal(got.final[s],
+                                      oracle[last][s].reshape(-1).numpy())
+    rep = flow.compile("tiny_cnn", default_chip(), flow.CompileOptions(
+        fidelity="analytic", batch=2, system=sysc)).evaluate()
+    jrep = jflow.compile("tiny_cnn", j_default_chip(), jflow.CompileOptions(
+        fidelity="analytic", batch=2, system=jsysc)).evaluate()
+    assert rep.degraded and rep.n_failed_chips == 1
+    assert rep.throughput_sps > 0
+    assert (rep.cycles, rep.comm_cycles, rep.energy, rep.throughput_sps) \
+        == (jrep.cycles, jrep.comm_cycles, jrep.energy, jrep.throughput_sps)
+
+
+def test_failed_link_routes_around():
+    sysc = SystemConfig(chips_x=2, chips_y=2, failed_links=((0, 1),))
+    assert sysc.hops(0, 1) == 3
+    jsysc = JSystemConfig(chips_x=2, chips_y=2, failed_links=((0, 1),))
+    assert [sysc.hops(a, b) for a in range(4) for b in range(4)] == \
+        [jsysc.hops(a, b) for a in range(4) for b in range(4)]
+    assert sysc.to_dict() == jsysc.to_dict()
+    with pytest.raises(ValueError):
+        SystemConfig(chips_x=1, chips_y=1, failed_chips=(0,))
+    # a fault model's failed chips and links degrade a mesh
+    fm = FaultModel(failed_chips=(3,), failed_links=((1, 0),))
+    deg = SystemConfig.mesh(4).degrade(fm.failed_chips, fm.failed_links)
+    assert deg.failed_chips == (3,) and deg.failed_links == ((0, 1),)
+
+
+# ---------------------------------------------------------------------------
+# serving degradation
+# ---------------------------------------------------------------------------
+
+# one layer at d_model 128: its analytic table compiles in seconds and
+# 300k req/s is still well over its prefill capacity
+SERVE_CFG = dict(n_layers=1, d_model=128, n_heads=4, vocab=256)
+SERVE_KW = dict(deadline_s=0.002, max_queue=4, max_retries=2,
+                retry_backoff_s=0.0005)
+
+
+@pytest.fixture(scope="module")
+def serve_tables():
+    table = StepCostTable(ServeModelCfg(**SERVE_CFG), fidelity="analytic")
+    jtable = JStepCostTable(JServeModelCfg(**SERVE_CFG),
+                            fidelity="analytic")
+    assert table.to_dict() == jtable.to_dict()
+    return table, jtable
+
+
+def test_serving_default_path_unchanged(serve_tables):
+    table, jtable = serve_tables
+    tr = poisson_trace(rate=8.0, n=40, seed=0)
+    m = ServeSim(table, make_policy("continuous", 8)).run(tr)
+    for k in ("shed_requests", "timeout_requests", "retries",
+              "goodput_tok_s"):
+        assert k not in m
+    m2 = ServeSim(table, make_policy("continuous", 8),
+                  deadline_s=1e9, max_queue=10 ** 9).run(tr)
+    assert m2["shed_requests"] == 0 and m2["timeout_requests"] == 0
+    for k in m:
+        assert m[k] == m2[k]
+    jm = JServeSim(jtable, j_make_policy("continuous", 8)).run(tr)
+    assert metrics_json(m) == j_metrics_json(jm)
+
+
+def test_serving_degradation_counters_byte_stable(serve_tables):
+    table, jtable = serve_tables
+    hot = poisson_trace(rate=300000.0, n=200, seed=1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        a = ServeSim(table, make_policy("continuous", 8),
+                     **SERVE_KW).run(hot)
+        b = ServeSim(table, make_policy("continuous", 8),
+                     **SERVE_KW).run(hot)
+        j = JServeSim(jtable, j_make_policy("continuous", 8),
+                      **SERVE_KW).run(hot)
+    assert a["shed_requests"] > 0
+    assert a["timeout_requests"] > 0
+    assert a["retries"] > 0
+    assert a["goodput_tok_s"] < a["throughput_tok_s"]
+    assert a["requests"] + a["shed_requests"] == len(hot)
+    assert metrics_json(a) == metrics_json(b) == j_metrics_json(j)
+    json.loads(metrics_json(a))
+
+
+def test_serving_saturation_warning_and_cap(serve_tables):
+    table, jtable = serve_tables
+    hot = poisson_trace(rate=300000.0, n=100, seed=2)
+    msgs = []
+    for sim in (ServeSim(table, make_policy("continuous", 8)),
+                JServeSim(jtable, j_make_policy("continuous", 8))):
+        with pytest.warns(RuntimeWarning, match="saturated") as rec:
+            sim.run(hot)
+        with pytest.raises(RuntimeError, match="max_sim_s") as err:
+            sim.run(hot, max_sim_s=1e-4)
+        msgs.append(([str(r.message) for r in rec], str(err.value)))
+    assert msgs[0] == msgs[1]

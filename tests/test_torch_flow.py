@@ -271,9 +271,10 @@ def test_rejects_faults_and_unknown_kwargs():
                                   "disk-cache"])
 def test_not_ported_raises(what, tmp_path):
     """What the port lacks raises ``NotImplementedError``.  Named
-    calibration presets and the pass disk cache are ported since: they
-    raise only on what cannot be served (an unknown preset, a cache
-    root that is a file)."""
+    calibration presets, the pass disk cache and the multi-chip
+    ``system`` path are ported since: they raise only on what cannot be
+    served (an unknown preset, a cache root that is a file, a ``system``
+    that is not a ``SystemConfig``)."""
     if what == "calibration":
         with pytest.raises(FileNotFoundError, match="default-chip"):
             flow.CompileOptions(calibration="preset")
@@ -285,12 +286,13 @@ def test_not_ported_raises(what, tmp_path):
             flow.Pipeline(disk_cache=str(root)).compile(
                 "tiny_cnn", default_chip(), workload_kw={"res": 8})
         return
-    with pytest.raises(NotImplementedError):
-        if what == "func:pallas":
-            _tiny().evaluate("func:pallas")
-        else:
+    if what == "system":
+        with pytest.raises(TypeError, match="SystemConfig"):
             flow.compile("tiny_cnn", default_chip(), flow.CompileOptions(
                 system=object(), workload_kw={"res": 8}))
+        return
+    with pytest.raises(NotImplementedError):
+        _tiny().evaluate("func:pallas")
 
 
 @pytest.mark.parametrize("what", ["simulate-fidelity", "func-fidelity",

@@ -3,10 +3,10 @@
 Every module of the port is imported in a fresh interpreter where
 ``import jax`` fails (``sys.modules["jax"] = None``); afterwards no
 module named ``repro`` or ``repro.*`` may be loaded.  The same holds
-for ``python -m repro_torch.explore`` and for a flow disk cache that
-the JAX package wrote into.  The entry points also refuse to fall back
-to the CPU quietly: without a card and without an explicit ``device``
-they raise.
+for ``python -m repro_torch.explore``, ``python -m repro_torch.serve``
+and a flow disk cache that the JAX package wrote into.  The entry
+points also refuse to fall back to the CPU quietly: without a card and
+without an explicit ``device`` they raise.
 """
 
 import os
@@ -47,6 +47,9 @@ from repro_torch.core.simulator import Simulator
 from repro_torch.explore import (ExplorationEngine, FleetEvaluator,
                                  DesignPoint, cli, evaluate_chip)
 from repro_torch.faults import degradation_curve
+from repro_torch.serve import ServeModelCfg, StepCostTable
+from repro_torch.serve.__main__ import main as serve_main
+from repro_torch.system import SystemConfig
 import warnings
 with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
@@ -54,6 +57,8 @@ with warnings.catch_warnings():
 art = flow.compile("tiny_cnn", default_chip(),
                    flow.CompileOptions(batch=1, workload_kw={"res": 8}))
 isa = art.ensure_model().isa
+tiny = dict(n_layers=1, d_model=64, n_heads=2, vocab=64, max_prompt=8,
+            max_new=8)
 calls = [resolve_device,
          lambda: ref.random_init(art.cg),
          lambda: to_tensor([1, 2]),
@@ -71,7 +76,17 @@ calls = [resolve_device,
                            "--no-cache"]),
          lambda: degradation_curve(art.cg, default_chip(), [0.0]),
          lambda: flow.calibrate(["tiny_cnn"], default_chip()),
-         lambda: dse.sweep_mg_flit(art.cg)]
+         lambda: dse.sweep_mg_flit(art.cg),
+         lambda: flow.compile("tiny_cnn", default_chip(),
+                              flow.CompileOptions(
+                                  batch=1, workload_kw={"res": 8},
+                                  system=SystemConfig.mesh(2))
+                              ).evaluate("simulate"),
+         lambda: StepCostTable(ServeModelCfg(**tiny), fidelity="simulate"),
+         lambda: serve_main(["--fidelity", "simulate", "--chips", "2",
+                             "--n-layers", "1", "--d-model", "64",
+                             "--n-heads", "2", "--vocab", "64",
+                             "--max-prompt", "8", "--max-new", "8"])]
 # only the host engines, asked for by name, need no device
 assert art.evaluate("simulate", engine="vector").cycles > 0
 for call in calls:
@@ -99,14 +114,20 @@ _EXPLORE_MODULES = ["core.dse", "explore.space", "explore.records",
                     "explore.search", "explore.cli", "explore.__main__",
                     "flow.diskcache", "flow.calibrate", "faults",
                     "faults.model", "faults.metrics", "faults.evaluate"]
+_SYSTEM_SERVE_MODULES = ["system", "system.config", "system.partition",
+                         "system.passes", "system.evaluate",
+                         "system.artifact", "serve", "serve.bucketing",
+                         "serve.rng", "serve.metrics", "serve.policy",
+                         "serve.workload", "serve.engine",
+                         "serve.trace_replay", "serve.__main__"]
 
 
 def test_imports_no_jax_no_repro():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     walked = proc.stdout.split()
-    assert int(walked[-1]) >= 45                  # every module walked
-    for mod in _SIM_MODULES + _EXPLORE_MODULES:
+    assert int(walked[-1]) >= 60                  # every module walked
+    for mod in _SIM_MODULES + _EXPLORE_MODULES + _SYSTEM_SERVE_MODULES:
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -116,7 +137,7 @@ def test_entry_points_raise_without_card():
         pytest.skip("a CUDA device is present: the entry points use it")
     proc = _run(_NO_CARD)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "16"
+    assert proc.stdout.split()[-1] == "19"
 
 
 def test_package_source_names_no_jax_or_repro():
@@ -160,6 +181,29 @@ def test_explore_cli_help_without_jax_or_repro():
                           timeout=300,
                           env=dict(os.environ, PYTHONPATH=str(SRC)))
     assert main.returncode == 0 and "sweep" in main.stdout, main.stderr
+
+
+_SERVE_HELP = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["repro_torch.serve", "--help"]
+try:
+    runpy.run_module("repro_torch.serve", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+print("help ok")
+"""
+
+
+def test_serve_cli_help_without_jax_or_repro():
+    proc = _run(_SERVE_HELP)
+    assert proc.returncode == 0, proc.stderr
+    assert "python -m repro_torch.serve" in proc.stdout
+    assert "--chips" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.split()[-2:] == ["help", "ok"]
 
 
 _PORT_ON_REFERENCE_CACHE = r"""
