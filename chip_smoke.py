@@ -7,8 +7,9 @@ Phases (none catches its own failure; any mismatch raises and the
 script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
-   bit-serial CUDA kernel from ``src/repro_torch/kernels/csrc`` (timed
-   as set-up);
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc`` in a
+   thread) while Triton compiles the decode kernels phase 10 launches
+   (:func:`build_triton_kernels`), timed as set-up;
 2. hold the kernel (``cim_mvm`` on CUDA tensors) against its plain
    PyTorch version ``bitserial_mvm_ref``, bit-exact (tolerance 0): the
    CPU tests' shapes (K not a multiple of 16 among them) under
@@ -102,9 +103,45 @@ script exits non-zero):
    second run from the table cache); (c) deadlines, shedding and retries
    on that table, two runs byte-identical.
 
-The ``launches`` of the ``kernels`` record count the main paths of
-phases 3, 7 and 8.  The second-to-last line is the ``{"kernels": [...]}``
-JSON record and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
+10. LM serving (``python -m repro_torch.launch.serve``) and its kernels:
+   (a) each new kernel against its plain version on the card —
+   ``gqa_decode_attention`` (Triton) at phi4-mini's heads (KV 8, G 3,
+   D 128) for (B, S_cache) = (2, 8), (4, 64), (32, 4096), (8, 32768) and
+   h2o-danube's (D 120, window 4096, 4096- and 5120-slot rings) before
+   and after one and two wraps, bf16 and INT8 caches (and float32 at
+   (2, 8)), within ``ATTN_TOL_F32`` of the plain version on fp32 inputs
+   and ``ATTN_TOL_REF`` of it in the reference's dtypes, both scaled to
+   each case's rms, with a planted fault that must fail at 4096 slots and
+   up, timed beside its bytes bound and
+   ``scaled_dot_product_attention`` (GQA) on the bf16 cache;
+   ``ssd_decode_step`` (Triton) at mamba2-780m's 48 heads, d_state 128,
+   head_dim 64 for B = 2, 4 and 128 (bf16 state), within ``SSD_TOL_*``;
+   ``int8_matmul`` (CUDA, the bit-serial source's one-pass
+   instantiation) bit-exact to ``cim_mvm`` on the 55 MVMs of phase 3
+   and the int32 wrap-around, timed beside ``torch._int_mm``; (b)
+   phi4-mini-3.8b and mamba2-780m at published widths and vocabularies,
+   cut to 2 layers: 8 teacher-forced decode steps with the kernels on
+   the card and the plain versions on the CPU, logits within
+   ``LOGIT_TOL`` of their range, argmax agreement reported; (c)
+   ``repro_torch.launch.serve.main`` at full depth, batch 4, 32 + 32
+   tokens: phi4-mini greedy with a bf16 and an INT8 KV cache
+   (``tuning.tuned(int8_kv_cache=True)``) and the default mamba2-780m,
+   each with the decode kernels' launches counted (one per attention or
+   SSD layer per token), its prefill s, decode s and tok/s, peak device
+   memory and, with ``--profile``, the device-busy share of 8 steady
+   decode steps; (d) ``quantized_linear`` driven at phi4-mini's decode
+   projections, both routes equal to each other and to
+   ``quantized_linear_ref`` (tolerance 0) and the backward, with
+   ``int8_matmul``'s and the bit-serial kernel's launches counted.
+
+The ``launches`` of the ``kernels`` record count the main paths: the
+bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
+10d's, the decode kernels' 10c's.  Each record's times are device times
+(CUDA-graph replay): the bit-serial kernel and ``int8_matmul`` summed
+over the 55 MVMs of phase 3, the decode attention at 10c's shape (B 4,
+64 slots, bf16, the last position), the SSD step at B 4.  The
+second-to-last line is the ``{"kernels": [...]}`` JSON record and the
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
 port's sources are not beside this script.
 """
@@ -180,6 +217,59 @@ SERVE_GATED = ("tokens", "throughput_tok_s", "throughput_req_s",
 # 9b: the serving CLI at simulate fidelity on a 2-chip pipeline mesh
 SERVE_CLI = ["--fidelity", "simulate", "--chips", "2", "--policy", "both",
              "--requests", "200"]
+# phase 10: LM serving (python -m repro_torch.launch.serve) and its kernels
+PEAK_BF16_OPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_OPS = 67e12          # H100 SXM fp32 outside the tensor cores
+# 10a decode attention: (arch, KV heads, G = H / KV, head_dim, window) and
+# (B, S_cache, positions); phi4-mini's (4, 64) is 10c's serving shape,
+# (2, 8) 10b's
+ATTN_PHI4 = ("phi4-mini", 8, 3, 128, None)
+ATTN_DANUBE = ("h2o-danube", 8, 4, 120, 4096)
+ATTN_PHI4_CASES = [(2, 8, (7, 3)), (4, 64, (63, 37)),
+                   (32, 4096, (4095, 2053)), (8, 32768, (32767,))]
+# danube's 4096-slot ring (window 4096): before the wrap, after one, two;
+# and a 5120-slot ring under the same window, whose valid stretch crosses
+# the ring's edge after a wrap (1024 slots masked)
+ATTN_DANUBE_CASES = [(4, 4096, (4095, 4096 + 1000, 2 * 4096 + 17)),
+                     (4, 5120, (5119, 5120 + 1000, 2 * 5120 + 17))]
+# kernel vs plain, each limit scaled to the case's own output:
+# |err| <= tol[0] * rms(plain) + tol[1] * |plain|, by compute dtype.
+# ATTN_TOL_F32 holds the kernel to the plain version on fp32 inputs (fp32
+# scores, as the kernel keeps them; bf16 leaves the kernel's rounding of
+# the probabilities before P.V and of its output, about one ulp);
+# ATTN_TOL_REF to the plain version in the reference's dtypes, which
+# also rounds the scores to bf16.  The rms shares are 2.5-4x the largest
+# measured (PERF.md section 6: 0.0193, 0.0853 and 1.03e-6); a planted
+# fault (one 64-slot block dropped at the end of the stretch, or the
+# window's edge one block short; 0.25 of the rms or more) must fail
+# ATTN_TOL_F32 at every case of 4096 slots and up.
+ATTN_TOL_F32 = {"bfloat16": (0.05, 2.0 ** -7), "float32": (4e-6, 4e-6)}
+ATTN_TOL_REF = {"bfloat16": (0.25, 2.0 ** -6), "float32": (4e-6, 4e-6)}
+ATTN_FAULT_MIN_S = 4096
+# 10a SSD step: mamba2-780m's (heads, groups, d_state, head_dim), batches
+# (10b's 2, 10c's 4, and 128)
+SSD_MAMBA2 = (48, 1, 128, 64)
+SSD_BATCHES = (2, 4, 128)
+SSD_TOL_Y = (1e-3, 1e-4)      # fp32 output: the same ops, another order
+SSD_TOL_H = (1e-6, 2.0 ** -7)  # bf16 state: one ulp of a rounding flip
+# 10a/10d quantized_linear at phi4-mini's projections for one decode
+# batch of 4 tokens: q, k/v, MLP in/gate, MLP out
+QL_SHAPES = [(4, 3072, 3072), (4, 3072, 1024), (4, 3072, 8192),
+             (4, 8192, 3072)]
+# 10b: full widths and vocab, cut to 2 layers, 8 teacher-forced steps
+LM_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m")
+LM_MODEL_LAYERS, LM_MODEL_STEPS, LM_MODEL_BATCH = 2, 8, 2
+# kernels (card) vs plain versions (CPU), bf16 logits:
+# max |card - cpu| <= LOGIT_TOL * max |cpu|
+LOGIT_TOL = 0.03
+# 10c: the serving CLI at full depth, (label, argv, int8 KV cache)
+LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
+LM_SERVE_RUNS = [
+    ("phi4-mini-3.8b, bf16 KV", ["--arch", "phi4-mini-3.8b",
+                                 "--temperature", "0"], False),
+    ("phi4-mini-3.8b, INT8 KV", ["--arch", "phi4-mini-3.8b",
+                                 "--temperature", "0"], True),
+    ("mamba2-780m (default arch)", [], False)]
 
 
 def log(*a):
@@ -1379,6 +1469,531 @@ def serve_phase(cli_extra=(), golden=True, device=None) -> dict:
     return out
 
 
+def build_triton_kernels(device) -> float:
+    """Compile every Triton kernel variant phase 10 launches (one per
+    head geometry, cache dtype and window; the SSD step at mamba2-780m's
+    widths) by a launch on one-slot inputs: the seconds taken.  The
+    compiles then happen at set-up, beside ``nvcc``, and not inside the
+    timed phases."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ssd_decode as SD
+    t0 = time.perf_counter()
+    for arch, kvh, g, d, window in (ATTN_PHI4, ATTN_DANUBE):
+        kinds = [(torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.int8)]
+        if arch == ATTN_PHI4[0]:
+            kinds.append((torch.float32, torch.float32))
+        for qt, ct in kinds:
+            q = torch.zeros((1, kvh, g, d), dtype=qt, device=device)
+            c = torch.zeros((1, 1, kvh, d), dtype=ct, device=device)
+            DA.gqa_decode_attention(q, c, c, 0, window)
+    nh, ng, n, p = SSD_MAMBA2
+    SD.ssd_decode_step(
+        torch.zeros((1, nh, n, p), dtype=torch.bfloat16, device=device),
+        torch.zeros((1, nh, p), dtype=torch.bfloat16, device=device),
+        torch.zeros((1, nh), device=device), torch.zeros(nh, device=device),
+        torch.zeros((1, ng, n), dtype=torch.bfloat16, device=device),
+        torch.zeros((1, ng, n), dtype=torch.bfloat16, device=device),
+        torch.zeros(nh, device=device))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dev_ms(fn, device) -> float:
+    """Device ms of ``fn()`` on CUDA (:func:`graph_ms`); on the CPU (a
+    rehearsal only) the host's mean ms over ``REPS`` runs."""
+    if str(device).startswith("cuda"):
+        return graph_ms(fn, REPS)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / REPS
+
+
+def within(got, want, atol: float, rtol: float) -> tuple:
+    """``(max |got - want|, ok)``: elementwise
+    ``|got - want| <= atol + rtol * |want|`` in fp32."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ok = bool((diff <= atol + rtol * w.abs()).all()) and g.shape == w.shape
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def scaled_within(got, want, scale: float, rtol: float) -> tuple:
+    """``(max |got - want|, that over rms(want), ok)``: elementwise
+    ``|got - want| <= scale * rms(want) + rtol * |want|`` in fp32."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    rms = float(w.square().mean().sqrt()) if w.numel() else 0.0
+    ok = bool((diff <= scale * rms + rtol * w.abs()).all()) \
+        and g.shape == w.shape
+    err = float(diff.max()) if diff.numel() else 0.0
+    return err, err / rms if rms else (float("inf") if err else 0.0), ok
+
+
+def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
+    """Phase 10a: each new kernel against its plain version on the card,
+    on the shapes phase 10's runs launch and the cases of the port's
+    plan, with its device time, bound and library yardstick.  Launches
+    made here compare; they are not counted.  Raises on a mismatch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ssd_decode as SD
+    from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels.ops import cim_mvm, int8_matmul
+    from repro_torch.kernels.ref import mvm_ref
+
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {"attention": [], "ssd": [], "int8_matmul": {}, "wall_s": {}}
+    t0 = time.perf_counter()
+
+    # -- gqa_decode_attention ------------------------------------------------
+    cases = [(ATTN_PHI4, c) for c in ATTN_PHI4_CASES] \
+        + [(ATTN_DANUBE, c) for c in ATTN_DANUBE_CASES]
+    failures = []
+    for (arch, kvh, g, d, window), (b, s_cache, positions) in cases:
+        q = torch.randn((b, kvh, g, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        shape = (b, s_cache, kvh, d)
+        caches = {
+            "bf16": [torch.randn(shape, generator=gen, device=dev,
+                                 dtype=torch.bfloat16) for _ in range(2)],
+            "int8": [torch.randint(-127, 128, shape, generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(2)]}
+        if (arch, b, s_cache) == (ATTN_PHI4[0],) + ATTN_PHI4_CASES[0][:2]:
+            # float32, a reduced config's compute dtype: the kernel's
+            # full-precision dot
+            caches["f32"] = [c.float() for c in caches["bf16"]]
+        for kind, (kc, vc) in caches.items():
+            qk = q.float() if kind == "f32" else q
+            # the plain version on fp32 inputs: fp32 scores, as the kernel
+            q32, k32, v32 = (qk.float(), DA.kv_load(kc, torch.float32),
+                             DA.kv_load(vc, torch.float32))
+            cdt = str(qk.dtype).removeprefix("torch.")
+            tol32, tol_ref = ATTN_TOL_F32[cdt], ATTN_TOL_REF[cdt]
+            for pos in positions:
+                case = f"{arch} B{b} S{s_cache} {kind} pos {pos}"
+                t_first = time.perf_counter()
+                got = DA.gqa_decode_attention(qk, kc, vc, pos, window)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t_first = time.perf_counter() - t_first
+                want = DA.gqa_decode_attention_ref(qk, kc, vc, pos, window)
+                want32 = DA.gqa_decode_attention_ref(q32, k32, v32, pos,
+                                                     window)
+                err, rel, ok = scaled_within(got, want, *tol_ref)
+                err32, rel32, ok32 = scaled_within(got, want32, *tol32)
+                # on the CPU (a rehearsal) the wrapper runs the plain
+                # version itself, which rounds the scores to bf16
+                ok32 = ok32 or dev.type != "cuda"
+                if not (ok and ok32):
+                    failures.append(f"{case}: |err| / rms {rel:.3g} (plain)"
+                                    f", {rel32:.3g} (fp32 plain)")
+                fault_rel = None
+                if s_cache >= ATTN_FAULT_MIN_S and kind != "f32":
+                    # planted fault: the last block of the stretch
+                    # dropped, or the window one block short
+                    f_pos, f_win = ((pos - DA.BLOCK_S, None) if window
+                                    is None else (pos, window - DA.BLOCK_S))
+                    bad = DA.gqa_decode_attention(qk, kc, vc, f_pos, f_win)
+                    _, fault_rel, caught = scaled_within(bad, want32, *tol32)
+                    caught = not caught
+                    if not caught:
+                        failures.append(f"{case}: planted fault (pos "
+                                        f"{f_pos}, window {f_win}) passes, "
+                                        f"|err| / rms {fault_rel:.3g}")
+                s_end = min(s_cache, pos + 1)
+                elt = {"int8": 1, "bf16": 2, "f32": 4}[kind]
+                n_bytes = 2 * b * s_end * kvh * d * elt \
+                    + 2 * b * kvh * g * d * qk.element_size()
+                n_ops = 4.0 * b * kvh * g * s_end * d
+                t_b = n_bytes / PEAK_BYTES
+                t_o = n_ops / (PEAK_F32_OPS if kind == "f32"
+                               else PEAK_BF16_OPS)
+                row = {"arch": arch, "B": b, "S_cache": s_cache, "KV": kvh,
+                       "G": g, "D": d, "window": window, "kv": kind,
+                       "pos": pos, "slots_read": s_end, "max_abs_err": err,
+                       "err_over_rms": rel, "max_abs_err_f32": err32,
+                       "err_f32_over_rms": rel32,
+                       "rms": float(want32.float().square().mean().sqrt()),
+                       "fault_err_over_rms": fault_rel,
+                       "first_call_s": t_first,
+                       "ms": dev_ms(lambda: DA.gqa_decode_attention(
+                           qk, kc, vc, pos, window), dev),
+                       "plain_ms": dev_ms(lambda: DA.gqa_decode_attention_ref(
+                           qk, kc, vc, pos, window), dev),
+                       "bound_ms": 1e3 * max(t_b, t_o),
+                       "bound_by": "bytes" if t_b >= t_o else "operations",
+                       "library_ms": None}
+                valid = DA.ring_valid(pos, s_cache, window, dev)
+                if kind == "bf16" and bool(valid[:s_end].all()) \
+                        and not bool(valid[s_end:].any()) \
+                        and dev.type == "cuda":
+                    # the same function for one PyTorch call: SDPA (GQA)
+                    # over the valid slots of the bf16 cache
+                    qh = q.reshape(b, kvh * g, 1, d)
+                    kh = kc[:, :s_end].permute(0, 2, 1, 3)
+                    vh = vc[:, :s_end].permute(0, 2, 1, 3)
+                    lib = F.scaled_dot_product_attention(qh, kh, vh,
+                                                         enable_gqa=True)
+                    _, rel_l, ok_l = scaled_within(
+                        lib.reshape(b, kvh, g, d), want, *tol_ref)
+                    if not ok_l:
+                        failures.append(f"{case}: SDPA disagrees with the "
+                                        f"plain version, {rel_l:.3g}")
+                    row["library_ms"] = dev_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, enable_gqa=True), dev)
+                out["attention"].append(row)
+                lib_s = ("-" if row["library_ms"] is None
+                         else f"{row['library_ms']:.4f}")
+                fault_s = ("" if fault_rel is None
+                           else f", planted fault {fault_rel:.3g}")
+                log(f"  attention {case}: first call {t_first:.3f} s, "
+                    f"|err| / rms {rel:.3g} (plain), {rel32:.3g} (fp32 "
+                    f"plain){fault_s}; kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                    f" ms ({row['bound_by']}), SDPA {lib_s} ms")
+        del caches, k32, v32
+    if failures:
+        raise AssertionError("gqa_decode_attention: " + "; ".join(failures))
+
+    out["wall_s"]["attention"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- ssd_decode_step -------------------------------------------------------
+    nh, ng, n, p = SSD_MAMBA2
+    for b in SSD_BATCHES:
+        h = torch.randn((b, nh, n, p), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        x = torch.randn((b, nh, p), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        dt = F.softplus(torch.randn((b, nh), generator=gen, device=dev))
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=dev))
+        bb = torch.randn((b, ng, n), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        cc = torch.randn((b, ng, n), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        dd = torch.randn((nh,), generator=gen, device=dev)
+        want_y, want_h = SD.ssd_decode_step_ref(h, x, dt, a_log, bb, cc, dd)
+        hk = h.clone()
+        got_y, got_h = SD.ssd_decode_step(hk, x, dt, a_log, bb, cc, dd)
+        err_y, ok_y = within(got_y, want_y, *SSD_TOL_Y)
+        err_h, ok_h = within(got_h, want_h, *SSD_TOL_H)
+        if not (ok_y and ok_h):
+            raise AssertionError(f"ssd_decode_step B{b}: |err| y {err_y}, "
+                                 f"h {err_h}")
+        hw = h.clone()
+        n_el = b * nh * n * p
+        n_bytes = 2 * n_el * 2 + b * nh * p * (2 + 4) + b * nh * 4 \
+            + 2 * b * ng * n * 2
+        t_b, t_o = n_bytes / PEAK_BYTES, 6.0 * n_el / PEAK_F32_OPS
+        row = {"B": b, "heads": nh, "d_state": n, "head_dim": p,
+               "max_abs_err": max(err_y, err_h), "err_y": err_y,
+               "err_h": err_h,
+               "ms": dev_ms(lambda: SD.ssd_decode_step(
+                   hw, x, dt, a_log, bb, cc, dd), dev),
+               "plain_ms": dev_ms(lambda: SD.ssd_decode_step_ref(
+                   h, x, dt, a_log, bb, cc, dd), dev),
+               "bound_ms": 1e3 * max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations",
+               "library_ms": None}
+        out["ssd"].append(row)
+        log(f"  ssd_decode_step B{b}: err y {err_y:.2e} h {err_h:.2e}, "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    out["wall_s"]["ssd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- int8_matmul: bit-exact to the bit-serial kernel ---------------------
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    n_cmp = 0
+    for _, a, m in recorded:
+        got = int8_matmul(a, m)
+        if not torch.equal(got, cim_mvm(a, m)):
+            raise AssertionError(f"int8_matmul != cim_mvm on "
+                                 f"{tuple(a.shape)}x{tuple(m.shape)}")
+        n_cmp += 1
+    by_shape = {}
+    for _, a, m in recorded:
+        by_shape.setdefault((a.shape[0], a.shape[1], m.shape[1]),
+                            [a, m, 0])[2] += 1
+    for (mm, kk, nn), (a, m, count) in by_shape.items():
+        fns = {"ms": lambda: int8_matmul(a, m),
+               "plain_ms": lambda: mvm_ref(a, m)}
+        if dev.type == "cuda":
+            ia, iw = int_mm_operands(a, m)
+            fns["library_ms"] = lambda: torch._int_mm(ia, iw)
+        for key, fn in fns.items():
+            tot[key] += count * dev_ms(fn, dev)
+    tot["bound_ms"], tot["bound_by"] = bound(
+        [(a.shape[0], a.shape[1], m.shape[1]) for _, a, m in recorded])
+    # the int32 wrap-around: N = 3 (the chooser splits K) and N = 64 per
+    # SM (a tile per SM: one K slice)
+    k = (1 << 17) + 1
+    xw = torch.full((2, k), -128, dtype=torch.int8, device=dev)
+    wrapped = (k * 16384 + 2**31) % 2**32 - 2**31
+    if dev.type == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for n, one_slice in ((3, False), (64 * sms, True)):
+            if (bsm.choose_blocks(2, n, k, sms)[2] >= k) != one_slice:
+                raise AssertionError(f"wrap-around N {n}: the chooser's "
+                                     f"K split is not as planned")
+            ww = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+            got = int8_matmul(xw, ww)
+            if not bool((got == wrapped).all()) \
+                    or not torch.equal(got, cim_mvm(xw, ww)):
+                raise AssertionError(f"int8_matmul wrap-around N {n}: "
+                                     f"{got.unique().tolist()}")
+            del ww
+    elif not bool((int8_matmul(
+            xw, torch.full((k, 3), -128, dtype=torch.int8)) == wrapped).all()):
+        raise AssertionError("int8_matmul wrap-around")
+    tot.update(compared=n_cmp, max_abs_err=0)
+    if dev.type != "cuda":
+        tot["library_ms"] = None
+    out["int8_matmul"] = tot
+    log(f"  int8_matmul == cim_mvm on all {n_cmp} main-path MVMs and the "
+        f"int32 wrap-around; summed: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+        f"torch._int_mm {tot['library_ms']} ms")
+
+    out["wall_s"]["int8_matmul"] = time.perf_counter() - t0
+    log("  10a wall s: " + ", ".join(f"{k} {v:.1f}"
+                                    for k, v in out["wall_s"].items()))
+    return out
+
+
+def ql_drive(device, seed: int = 0) -> dict:
+    """Phase 10d: ``quantized_linear``, the INT8 linear of the LM stack
+    (``repro_torch.kernels.ops``), driven as a user calls it at
+    phi4-mini's decode projections: forward on both routes (equal to
+    each other and to ``quantized_linear_ref``, tolerance 0), then the
+    straight-through backward of the default route.  Returns the
+    launches of ``int8_matmul`` and of the bit-serial kernel."""
+    import torch
+    from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels.ops import quantized_linear
+    from repro_torch.kernels.ref import quantized_linear_ref
+
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    ops = [(torch.randn((mm, kk), generator=gen, device=dev),
+            torch.randint(-128, 128, (kk, nn), generator=gen, device=dev,
+                          dtype=torch.int8)) for mm, kk, nn in QL_SHAPES]
+    bsm.int8_matmul_cuda.launches = 0
+    bsm.bitserial_mvm.launches = 0
+    t0 = time.perf_counter()
+    for x, w in ops:
+        x = x.requires_grad_(True)
+        scales = (float(x.detach().abs().max()) / 127.0, 0.01)
+        y = quantized_linear(x, w, scales)
+        y_cim = quantized_linear(x.detach(), w, scales, use_pallas=True)
+        y.sum().backward()
+        y_ref = quantized_linear_ref(x.detach(), w, scales[1], scales[0])
+        if not (torch.equal(y.detach(), y_cim)
+                and torch.equal(y_cim, y_ref)
+                and bool(torch.isfinite(x.grad).all())):
+            raise AssertionError(f"quantized_linear {tuple(w.shape)}: the "
+                                 f"routes and the plain version differ")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"int8_matmul_launches": bsm.int8_matmul_cuda.launches,
+           "bitserial_launches": bsm.bitserial_mvm.launches, "wall_s": wall}
+    if dev.type == "cuda" and (
+            res["int8_matmul_launches"] != len(QL_SHAPES)
+            or res["bitserial_launches"] != len(QL_SHAPES)):
+        raise AssertionError(f"quantized_linear drive launches {res}")
+    return res
+
+
+def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
+                   steps: int = LM_MODEL_STEPS, batch: int = LM_MODEL_BATCH,
+                   seed: int = 0) -> dict:
+    """Phase 10b: ``name`` at its published widths and vocabulary, cut to
+    ``layers`` layers, random weights from ``seed``: ``steps``
+    teacher-forced decode steps on ``device`` (the kernels) and with the
+    same bf16 parameters on the CPU (the plain versions).  The logits
+    must agree within ``LOGIT_TOL`` of their range; returns the largest
+    gap and how often the argmax agrees."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer as T
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    cfg = dataclasses.replace(ARCHS[name], n_layers=layers)
+    cast = T.cast_params(cfg, T.init_params(
+        cfg, torch.Generator(dev).manual_seed(seed), dev))
+    cpu = cast.map(lambda t: t.to("cpu"))
+    cpu.compute_dtype = cast.compute_dtype
+    tokens = torch.from_numpy(make_batch(cfg, batch, steps, seed=seed,
+                                         step=0)["tokens"])
+    st_dev = T.init_decode_state(cfg, cast, batch, steps)
+    st_cpu = T.init_decode_state(cfg, cpu, batch, steps)
+    worst, agree, t_dev, t_cpu = 0.0, 0, 0.0, 0.0
+    for t in range(steps):
+        tok = tokens[:, t:t + 1]
+        t0 = time.perf_counter()
+        got, st_dev = T.decode_step(cfg, cast, st_dev, tok.to(dev))
+        got = got.cpu()
+        t_dev += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, st_cpu = T.decode_step(cfg, cpu, st_cpu, tok)
+        t_cpu += time.perf_counter() - t0
+        gap = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not (bool(torch.isfinite(got).all()) and gap <= LOGIT_TOL * scale):
+            raise AssertionError(f"{name} step {t}: max |card - cpu| {gap} "
+                                 f"over max |logit| {scale}")
+        worst = max(worst, gap / scale)
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    return {"arch": name, "layers": layers, "steps": steps, "batch": batch,
+            "wall_s": time.perf_counter() - t_start,
+            "max_gap_over_range": worst,
+            "argmax_agree": agree / (steps * batch),
+            "device_s": t_dev, "cpu_s": t_cpu}
+
+
+def run_lm_serve(argv) -> tuple:
+    """``(s, stdout)`` of ``repro_torch.launch.serve.main(argv)``, which
+    must return 0 (it asserts finite logits itself)."""
+    from repro_torch.launch.serve import main as lm_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lm_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"launch.serve {argv}: exit {rc}")
+    return wall, buf.getvalue()
+
+
+def decode_profile(args, steps: int = 8) -> tuple:
+    """One ``torch.profiler`` trace of ``steps`` steady-state decode steps
+    of the served configuration (``args`` as the CLI parsed them: its
+    caches, the prompt stepped through first, then ``steps`` more tokens
+    traced), built through the same entry points: :func:`device_profile`'s
+    ``(wall ms, device busy ms, top events)``."""
+    import torch
+    from repro_torch.configs import ARCHS, ShapeConfig, reduced
+    from repro_torch.data import make_batch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(ARCHS[args.arch]) if args.reduced else ARCHS[args.arch]
+    dev = torch.device("cuda", 0) if args.device is None \
+        else torch.device(args.device)
+    total = args.prompt_len + args.gen
+    end = args.prompt_len + min(steps, args.gen)
+    params = T.cast_params(cfg, T.init_params(
+        cfg, torch.Generator(dev).manual_seed(args.seed), dev))
+    fn, _ = lm_steps.make_decode_step(
+        cfg, dev, ShapeConfig("profile", total, args.batch, "decode"))
+    tokens = torch.from_numpy(make_batch(cfg, args.batch, end,
+                                         seed=args.seed, step=0)["tokens"])
+    tokens = tokens.to(dev)
+    state = T.init_decode_state(cfg, params, args.batch, total)
+    for t in range(args.prompt_len):
+        _, state = fn(params, state, tokens[:, t:t + 1])
+
+    def run():
+        nonlocal state
+        for t in range(args.prompt_len, end):
+            _, state = fn(params, state, tokens[:, t:t + 1])
+
+    return device_profile(run)
+
+
+def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
+                   profile: bool = False) -> dict:
+    """Phase 10c: ``python -m repro_torch.launch.serve`` through
+    ``main(argv)`` for each of ``runs`` (``LM_SERVE_ARGS`` plus the run's
+    and ``extra`` arguments; the INT8 KV cache by
+    ``tuning.tuned(int8_kv_cache=True)``), the decode kernels' launch
+    counts set to 0 just before each run and read just after: one
+    attention launch per attention layer and token, one SSD launch per
+    SSD layer and token.  Prints the CLI's lines; ``profile`` traces
+    one more run of each for the device-busy share."""
+    import re
+    import torch
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ssd_decode as SD
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import tuning
+
+    dev_arg = [] if device is None else ["--device", str(device)]
+    on_card = device is None or str(device).startswith("cuda")
+    out = []
+    for label, run_argv, int8 in runs:
+        argv = LM_SERVE_ARGS + list(run_argv) + list(extra) + dev_arg
+        args = lm_serve.parser().parse_args(argv)
+        cfg = ARCHS[args.arch]
+        if args.reduced:
+            cfg = reduced(cfg)
+        tokens = args.prompt_len + args.gen
+        n_attn = cfg.n_blocks * cfg.block_pattern.count("A")
+        n_ssm = cfg.n_blocks * cfg.block_pattern.count("M")
+
+        def knob():
+            return (tuning.tuned(int8_kv_cache=True) if int8
+                    else contextlib.nullcontext())
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        DA.gqa_decode_attention.launches = 0
+        SD.ssd_decode_step.launches = 0
+        with knob():
+            wall, text = run_lm_serve(argv)
+        launched = (DA.gqa_decode_attention.launches,
+                    SD.ssd_decode_step.launches)
+        lines = text.strip().splitlines()
+        m = re.fullmatch(r"prefill: (\S+)s  decode: (\S+)s \((\S+) tok/s\)",
+                         lines[1])
+        if len(lines) != 3 or m is None or not lines[2].startswith(
+                "sample token ids: "):
+            raise AssertionError(f"{label}: output {lines}")
+        row = {"label": label, "argv": argv, "int8_kv": int8,
+               "wall_s": wall, "prefill_s": float(m.group(1)),
+               "decode_s": float(m.group(2)), "tok_s": float(m.group(3)),
+               "attention_launches": launched[0],
+               "ssd_launches": launched[1], "lines": lines}
+        if on_card:
+            want = (tokens * n_attn, tokens * n_ssm)
+            if launched != want:
+                raise AssertionError(f"{label}: launches {launched}, "
+                                     f"expected {want}")
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profile and on_card:
+            with knob():
+                p_wall, busy, top = decode_profile(args)
+            row.update(profiled_wall_ms=p_wall, device_busy_ms=busy,
+                       top_device_events=top)
+        out.append(row)
+        for line in lines:
+            log(f"  {line}")
+        msg = (f"  {label}: {wall:.2f} s in all, launches attention "
+               f"{launched[0]}, SSD {launched[1]}")
+        if "peak_gb" in row:
+            msg += f", peak device memory {row['peak_gb']:.2f} GB"
+        if "device_busy_ms" in row:
+            busy, p_wall = row["device_busy_ms"], row["profiled_wall_ms"]
+            msg += (f"; 8 traced decode steps: device busy {busy:.1f} of "
+                    f"{p_wall:.1f} ms ({100 * busy / p_wall:.1f}%)")
+        log(msg)
+    return {"runs": out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1415,11 +2030,17 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     report = {"card": card, "paths": {}, "shapes": []}
 
-    # 1. build ---------------------------------------------------------------
+    # 1. build: nvcc in a thread while Triton compiles the decode kernels ----
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    lib = bsm.build_library()
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(bsm.build_library)
+        report["triton_build_s"] = build_triton_kernels(dev)
+        lib = built.result()
     report["build_s"] = time.perf_counter() - t0
-    log(f"build: {lib.name} in {report['build_s']:.2f} s")
+    log(f"build: {lib.name} and the Triton decode kernels in "
+        f"{report['build_s']:.2f} s (Triton "
+        f"{report['triton_build_s']:.2f} s of it)")
     for line in bsm.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1693,6 +2314,45 @@ def main() -> int:
     log(f"serving phase done in {report['serve']['wall_s']:.1f} s; kernel "
         f"launches on the main paths: {launches_total} [{card}]")
 
+    # 10. LM serving (python -m repro_torch.launch.serve) and its kernels -----
+    t0 = time.perf_counter()
+    log(f"phase 10a: the LM kernels against their plain versions (device "
+        f"memory at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved)")
+    lmk = lm_kernels_phase(recorded, dev, args.seed)
+    log("phase 10b: the model at full width, 2 layers: kernels (card) "
+        "against the plain versions (CPU)")
+    models = [lm_model_phase(name, dev, seed=args.seed)
+              for name in LM_MODEL_ARCHS]
+    for r in models:
+        log(f"  {r['arch']} x{r['layers']} layers, {r['steps']} steps at "
+            f"batch {r['batch']}: max |card - cpu| / max |logit| "
+            f"{r['max_gap_over_range']:.4f} (tolerance {LOGIT_TOL}), argmax "
+            f"agrees {100 * r['argmax_agree']:.1f}%; card {r['device_s']:.2f}"
+            f" s, cpu {r['cpu_s']:.2f} s of {r['wall_s']:.1f} s")
+    log("phase 10c: python -m repro_torch.launch.serve at full depth")
+    lms = lm_serve_phase(profile=args.profile)
+    log("phase 10d: quantized_linear driven at phi4-mini's projections")
+    ql = ql_drive(dev, args.seed)
+    launches_total += ql["bitserial_launches"]
+    report["lm"] = {"kernels": lmk, "models": models, "serve": lms,
+                    "quantized_linear": ql,
+                    "wall_s": time.perf_counter() - t0}
+    log(f"LM phase done in {report['lm']['wall_s']:.1f} s; quantized_linear "
+        f"launched int8_matmul {ql['int8_matmul_launches']} and the "
+        f"bit-serial kernel {ql['bitserial_launches']} times [{card}]")
+
+    def main_row(rows, **key):
+        for r in rows:
+            if all(r[k] == v for k, v in key.items()):
+                return r
+        raise AssertionError(f"no row {key}")
+
+    runs = lms["runs"]
+    attn = main_row(lmk["attention"], arch=ATTN_PHI4[0], B=4, S_cache=64,
+                    kv="bf16", pos=63)
+    ssd = main_row(lmk["ssd"], B=4)
+    i8 = lmk["int8_matmul"]
     kernels = [{
         "name": "bitserial_mvm",
         "route": "cuda",
@@ -1705,12 +2365,52 @@ def main() -> int:
         "bound_ms": tot["bound_ms"],
         "bound_by": bound_all_by,
         "library_ms": tot["library_ms"],
+    }, {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_mvm.cu",
+        "replaces": "src/repro/kernels/ops.py:80",
+        "launches": ql["int8_matmul_launches"],
+        "max_abs_err": i8["max_abs_err"],
+        "ms": i8["ms"],
+        "plain_ms": i8["plain_ms"],
+        "bound_ms": i8["bound_ms"],
+        "bound_by": i8["bound_by"],
+        "library_ms": i8["library_ms"],
+    }, {
+        "name": "gqa_decode_attention",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/csrc/gqa_decode_attention.py",
+        "replaces": "src/repro/models/layers.py:319",
+        "launches": sum(r["attention_launches"] for r in runs),
+        "max_abs_err": max(r["max_abs_err"] for r in lmk["attention"]),
+        "ms": attn["ms"],
+        "plain_ms": attn["plain_ms"],
+        "bound_ms": attn["bound_ms"],
+        "bound_by": attn["bound_by"],
+        "library_ms": attn["library_ms"],
+    }, {
+        "name": "ssd_decode_step",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/csrc/ssd_decode_step.py",
+        "replaces": "src/repro/models/ssm.py:183",
+        "launches": sum(r["ssd_launches"] for r in runs),
+        "max_abs_err": max(r["max_abs_err"] for r in lmk["ssd"]),
+        "ms": ssd["ms"],
+        "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
+        "library_ms": ssd["library_ms"],
     }]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on the main path")
     report["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    log("kernels: bitserial_mvm (cuda, sm_90a)")
+    log("kernels: bitserial_mvm and int8_matmul (cuda, sm_90a), "
+        "gqa_decode_attention and ssd_decode_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,18 @@ find:
   under many chips' timing;
 * :mod:`repro_torch.faults` — seeded fault models, their hooks in the
   oracle and the functional ISS, and degradation curves;
+* :mod:`repro_torch.system` and :mod:`repro_torch.serve` — the mesh of
+  chips and the serving replay;
+* the LM stack: :mod:`repro_torch.configs` (the ten architectures),
+  :mod:`repro_torch.data`, :mod:`repro_torch.quant`,
+  :mod:`repro_torch.models` and :mod:`repro_torch.launch` (the serving
+  entry point ``python -m repro_torch.launch.serve``), with the decode
+  attention and the SSD step as Triton kernels;
 * :mod:`repro_torch.convert` — carries the JAX package's numpy
-  weights/inputs/quantization across as tensors.
+  weights/inputs/quantization and LM parameters across as tensors.
 
-The package imports ``torch`` and numpy only.  Entry points that touch
+The package imports ``torch`` and numpy only (``triton`` inside the
+Triton kernels' launchers, at first use).  Entry points that touch
 tensors run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -1,11 +1,15 @@
-"""Carry the JAX package's oracle state across to the port.
+"""Carry the JAX package's state across to the port.
 
 :func:`from_reference` takes what :func:`repro.core.ref.random_init` and
 :func:`repro.core.ref.auto_quant` return — numpy dicts plus objects with
 ``.scale``/``.shift`` — and gives back the port's tensors and
-:class:`~repro_torch.core.ref.QuantParams`.  It is duck-typed: nothing
-of ``repro`` is imported.  Tensors pass through (moved to ``device``),
-so the function is idempotent.
+:class:`~repro_torch.core.ref.QuantParams`.  :func:`from_jax_params`
+takes the LM's parameter pytree (:func:`repro.models.transformer.
+init_params`) as numpy arrays and gives back the port's
+:class:`~repro_torch.models.transformer.ParamTree`, its stacked blocks
+unstacked.  Both are duck-typed: nothing of ``repro`` is imported.
+Tensors pass through (moved to ``device``), so the functions are
+idempotent.
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ import torch
 from .core.ref import QuantParams
 from .device import resolve_device
 
-__all__ = ["from_reference", "to_tensor"]
+__all__ = ["from_reference", "from_jax_params", "to_tensor"]
+
+# pytree keys whose leaves carry a leading per-block axis
+_STACKED = ("blocks", "enc_blocks")
 
 
 def to_tensor(a: Any, device: Union[str, torch.device, None] = None
@@ -28,7 +35,13 @@ def to_tensor(a: Any, device: Union[str, torch.device, None] = None
     dev = resolve_device(device)
     if isinstance(a, torch.Tensor):
         return a.to(dev)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":       # ml_dtypes: no numpy bridge
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    if not arr.flags.writeable:            # e.g. a view of a JAX array
+        arr = arr.copy()
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
 
 def from_reference(weights: Mapping[int, Any], biases: Mapping[int, Any],
@@ -48,3 +61,35 @@ def from_reference(weights: Mapping[int, Any], biases: Mapping[int, Any],
         int(k): QuantParams(scale=int(v.scale), shift=int(v.shift))
         for k, v in quant.items()}
     return w, b, x, q
+
+
+def _tree_tensors(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tree_tensors(v, dev) for k, v in tree.items()}
+    return to_tensor(tree, dev)
+
+
+def _unstack(tree: Any, i: int) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def from_jax_params(cfg: Any, params: Mapping[str, Any],
+                    device: Union[str, torch.device, None] = None):
+    """The reference's LM parameters (nested mappings of arrays, with the
+    leading ``n_blocks`` axis of ``params["blocks"]`` and
+    ``encoder_layers`` axis of ``params["enc_blocks"]``) as the port's
+    parameter module on ``device`` (default: CUDA), one tree per block.
+    ``cfg`` gives the block counts."""
+    from .models.transformer import ParamTree
+    dev = resolve_device(device)
+    counts = {"blocks": cfg.n_blocks, "enc_blocks": cfg.encoder_layers}
+    tree: Dict[str, Any] = {}
+    for key, val in params.items():
+        if key in _STACKED:
+            stacked = _tree_tensors(val, dev)
+            tree[key] = [_unstack(stacked, i) for i in range(counts[key])]
+        else:
+            tree[key] = _tree_tensors(val, dev)
+    return ParamTree(tree)

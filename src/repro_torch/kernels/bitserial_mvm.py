@@ -1,4 +1,5 @@
-"""Bit-serial digital-CIM MVM: the hand-written CUDA kernel's wrapper.
+"""Bit-serial digital-CIM MVM and the direct INT8 GEMM: the wrappers of
+the hand-written CUDA kernel.
 
 Counterpart of :mod:`repro.kernels.bitserial_mvm` (the Pallas TPU
 kernel).  The kernel, ``csrc/bitserial_mvm.cu``, is CUDA C++ for
@@ -14,7 +15,9 @@ failure raises); CPU tensors run the plain version
 :func:`repro_torch.kernels.ref.bitserial_mvm_ref`.
 :func:`bitserial_mvm_cuda` launches on CUDA operands of any shape, with
 the tile and K split from :func:`choose_blocks` (pure Python) unless
-given.
+given.  :func:`int8_matmul_cuda` launches the same kernel's one-pass
+instantiation (``int8_matmul_launch``, the counterpart of the XLA dot
+behind :func:`repro.kernels.ops.int8_matmul`) on the same tiles.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 
 from .ref import bitserial_mvm_ref
 
-__all__ = ["bitserial_mvm", "bitserial_mvm_cuda", "choose_blocks",
+__all__ = ["bitserial_mvm", "bitserial_mvm_cuda", "int8_matmul_cuda",
+           "choose_blocks",
            "resolve_blocks", "check_tile", "build_library", "SOURCE",
            "NVCC_FLAGS", "TILES", "BK"]
 
@@ -98,6 +102,9 @@ def _library() -> ctypes.CDLL:
         lib.bitserial_mvm_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.bitserial_mvm_launch.restype = ctypes.c_int
+        lib.int8_matmul_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.int8_matmul_launch.restype = ctypes.c_int
         lib.bitserial_mvm_error_string.argtypes = [ctypes.c_int]
         lib.bitserial_mvm_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -187,6 +194,43 @@ def _check(x: torch.Tensor, w: torch.Tensor, act_bits: int) -> None:
         raise ValueError(f"act_bits must be in 1..8, got {act_bits}")
 
 
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
+            blocks: Tuple[Optional[int], ...], extra: Tuple[int, ...]
+            ) -> torch.Tensor:
+    """Launch the library's ``name`` on checked CUDA operands: the
+    ``(M, N)`` int32 output, the blocks from :func:`choose_blocks` where
+    ``None``, ``extra`` before the stream."""
+    if not x.is_cuda:
+        raise ValueError(f"no CUDA kernel for device {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    m, k = x.shape
+    n = w.shape[1]
+    index = x.get_device()
+    bm, bn, bk = _launch_blocks(m, n, k, blocks, index)
+    if m == 0 or n == 0 or k == 0:
+        return x.new_zeros((m, n), dtype=torch.int32)
+    # the launcher zeroes the output first when K is split
+    out = x.new_empty((m, n), dtype=torch.int32)
+    lib = _LIB or _library()
+    fn = getattr(lib, name)
+    # the raw handle of PyTorch's current stream (what
+    # torch.cuda.current_stream(index).cuda_stream reads, without
+    # building a Stream object on every launch)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk,
+            *extra, stream)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} failed: "
+                           f"{lib.bitserial_mvm_error_string(err).decode()}")
+    return out
+
+
 def bitserial_mvm_cuda(x: torch.Tensor, w: torch.Tensor, *,
                        act_bits: int = 8, signed: bool = True,
                        block_m: Optional[int] = None,
@@ -196,35 +240,25 @@ def bitserial_mvm_cuda(x: torch.Tensor, w: torch.Tensor, *,
     kernel masks ragged edges).  Blocks left ``None`` come from
     :func:`choose_blocks`; given ones must pass :func:`check_tile`."""
     _check(x, w, act_bits)
-    if not x.is_cuda:
-        raise ValueError(f"no bit-serial kernel for device {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("operands must be contiguous")
-    m, k = x.shape
-    n = w.shape[1]
-    index = x.get_device()
-    bm, bn, bk = _launch_blocks(m, n, k, (block_m, block_n, block_k), index)
-    if m == 0 or n == 0 or k == 0:
-        return x.new_zeros((m, n), dtype=torch.int32)
-    # the launcher zeroes the output first when K is split
-    out = x.new_empty((m, n), dtype=torch.int32)
-    lib = _LIB or _library()
-    # the raw handle of PyTorch's current stream (what
-    # torch.cuda.current_stream(index).cuda_stream reads, without
-    # building a Stream object on every launch)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk,
-            act_bits, int(signed), stream)
-    if index == torch.cuda.current_device():
-        err = lib.bitserial_mvm_launch(*args)
-    else:
-        with torch.cuda.device(index):
-            err = lib.bitserial_mvm_launch(*args)
-    if err:
-        raise RuntimeError(f"bitserial_mvm launch failed: "
-                           f"{lib.bitserial_mvm_error_string(err).decode()}")
+    out = _launch("bitserial_mvm_launch", x, w, (block_m, block_n, block_k),
+                  (act_bits, int(signed)))
     bitserial_mvm.launches += 1
     return out
+
+
+def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``(M, K) int8 @ (K, N) int8 -> (M, N) int32`` in one pass of the
+    int8 tensor cores (modulo 2^32, bit-identical to
+    :func:`bitserial_mvm_cuda`), on CUDA operands of any shape, with the
+    blocks of :func:`choose_blocks`."""
+    _check(x, w, 8)
+    out = _launch("int8_matmul_launch", x, w, (None, None, None), ())
+    int8_matmul_cuda.launches += 1
+    return out
+
+
+# kernel launches since the last reset (CPU calls excluded)
+int8_matmul_cuda.launches = 0
 
 
 def bitserial_mvm(x: torch.Tensor, w: torch.Tensor, *, act_bits: int = 8,

@@ -55,6 +55,13 @@
 //   SM, so the chooser splits K to about three resident blocks per SM.
 // * No padding copies: the kernel masks ragged M, N and K itself.
 //
+// The direct INT8 GEMM `int8_matmul` (replacing the XLA dot of
+// src/repro/kernels/ops.py:80, `mvm_ref`) is the same kernel with one
+// pass instead of the planes (template flag kDirect): the raw s8
+// fragments go to `mma.sync.m16n8k32.s8.s8.s32` once per K step, with the
+// same staging, masking and split-K.  Both compute the same int32 sum
+// modulo 2^32, so the two are bit-identical.
+//
 // Contract (checked by the Python wrapper): (bm, bn) one of the tiles
 // instantiated below, k_per_split a positive multiple of 64, x, w and out
 // contiguous row-major.
@@ -160,8 +167,10 @@ struct Layout {
 // of 16 and w 16-byte aligned.  Then every 16-byte chunk of that operand's
 // tile lies wholly inside it or wholly past its edge, and is copied
 // straight or zero-filled: no realignment or masking in the fix-up pass.
+// kDirect: one s8 x s8 product per K step (int8_matmul) in place of the
+// act_bits plane products.
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool kAlignX,
-          bool kAlignW>
+          bool kAlignW, bool kDirect>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 bitserial_mma_kernel(const Params p) {
   using L = Layout<BM, BN>;
@@ -365,6 +374,14 @@ bitserial_mma_kernel(const Params p) {
         bf[ni + 1][0] = r[2];
         bf[ni + 1][1] = r[3];
       }
+      if constexpr (kDirect) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            mma_s8s8(acc[mi][ni], af[mi], bf[ni]);
+        continue;
+      }
       for (int b = 0; b < p.act_bits; ++b) {
         if (p.is_signed && b == msb) {
           // -2^b * bit_b, an s8 operand
@@ -425,11 +442,11 @@ bitserial_mma_kernel(const Params p) {
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool kAlignX,
-          bool kAlignW>
+          bool kAlignW, bool kDirect>
 cudaError_t launch_as(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = Layout<BM, BN>::kBytes;
-  auto kernel =
-      bitserial_mma_kernel<BM, BN, WARPS_M, WARPS_N, kAlignX, kAlignW>;
+  auto kernel = bitserial_mma_kernel<BM, BN, WARPS_M, WARPS_N, kAlignX,
+                                     kAlignW, kDirect>;
   // above 48 KB a block's shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -440,7 +457,7 @@ cudaError_t launch_as(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool kDirect>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const bool align_x =
       p.K % 16 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
@@ -449,18 +466,39 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   // x unaligned with w aligned is the first conv of a CNN (K = kh·kw·C_in
   // with C_in = 3); x aligned with w unaligned runs on the general path
   if (align_x && align_w)
-    return launch_as<BM, BN, WARPS_M, WARPS_N, true, true>(p, stream);
+    return launch_as<BM, BN, WARPS_M, WARPS_N, true, true, kDirect>(p,
+                                                                     stream);
   if (align_w)
-    return launch_as<BM, BN, WARPS_M, WARPS_N, false, true>(p, stream);
-  return launch_as<BM, BN, WARPS_M, WARPS_N, false, false>(p, stream);
+    return launch_as<BM, BN, WARPS_M, WARPS_N, false, true, kDirect>(p,
+                                                                      stream);
+  return launch_as<BM, BN, WARPS_M, WARPS_N, false, false, kDirect>(p,
+                                                                     stream);
+}
+
+// zero the output first when K is split (K slices add into it
+// atomically), then launch the (bm, bn) tile
+template <bool kDirect>
+cudaError_t launch_tile(const Params& p, int bm, int bn, cudaStream_t s) {
+  if (p.k_per_split <= 0 || p.k_per_split % kBK) return cudaErrorInvalidValue;
+  if (p.k_per_split < p.K) {
+    const cudaError_t e = cudaMemsetAsync(
+        p.out, 0, sizeof(int32_t) * static_cast<size_t>(p.M) * p.N, s);
+    if (e != cudaSuccess) return e;
+  }
+  if (bm == 128 && bn == 128) return launch<128, 128, 2, 4, kDirect>(p, s);
+  if (bm == 128 && bn == 64) return launch<128, 64, 2, 2, kDirect>(p, s);
+  if (bm == 64 && bn == 64) return launch<64, 64, 2, 2, kDirect>(p, s);
+  if (bm == 16 && bn == 64) return launch<16, 64, 1, 4, kDirect>(p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a tile that is not instantiated here.
+// Each launches on `stream` and returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a tile that is not instantiated
+// here.
 // The tiles must match `TILES` in kernels/bitserial_mvm.py.
 int bitserial_mvm_launch(const void* x, const void* w, void* out, int M,
                          int N, int K, int bm, int bn, int k_per_split,
@@ -468,19 +506,16 @@ int bitserial_mvm_launch(const void* x, const void* w, void* out, int M,
   const Params p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
                  static_cast<int32_t*>(out), M, N, K, k_per_split, act_bits,
                  is_signed};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k_per_split <= 0 || k_per_split % kBK) return cudaErrorInvalidValue;
-  if (k_per_split < K) {
-    // K slices of one tile add into the output atomically: start from 0
-    const cudaError_t e = cudaMemsetAsync(
-        out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N, s);
-    if (e != cudaSuccess) return e;
-  }
-  if (bm == 128 && bn == 128) return launch<128, 128, 2, 4>(p, s);
-  if (bm == 128 && bn == 64) return launch<128, 64, 2, 2>(p, s);
-  if (bm == 64 && bn == 64) return launch<64, 64, 2, 2>(p, s);
-  if (bm == 16 && bn == 64) return launch<16, 64, 1, 4>(p, s);
-  return cudaErrorInvalidValue;
+  return launch_tile<false>(p, bm, bn, static_cast<cudaStream_t>(stream));
+}
+
+// The direct GEMM: `(M,K) int8 @ (K,N) int8 -> (M,N) int32` in one pass,
+// on the same tiles and split-K.
+int int8_matmul_launch(const void* x, const void* w, void* out, int M, int N,
+                       int K, int bm, int bn, int k_per_split, void* stream) {
+  const Params p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+                 static_cast<int32_t*>(out), M, N, K, k_per_split, 8, 1};
+  return launch_tile<true>(p, bm, bn, static_cast<cudaStream_t>(stream));
 }
 
 const char* bitserial_mvm_error_string(int code) {

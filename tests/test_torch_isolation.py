@@ -3,8 +3,9 @@
 Every module of the port is imported in a fresh interpreter where
 ``import jax`` fails (``sys.modules["jax"] = None``); afterwards no
 module named ``repro`` or ``repro.*`` may be loaded.  The same holds
-for ``python -m repro_torch.explore``, ``python -m repro_torch.serve``
-and a flow disk cache that the JAX package wrote into.  The entry
+for ``python -m repro_torch.explore``, ``python -m repro_torch.serve``,
+``python -m repro_torch.launch.serve`` and a flow disk cache that the
+JAX package wrote into.  The entry
 points also refuse to fall back to the CPU quietly: without a card and
 without an explicit ``device`` they raise.
 """
@@ -50,6 +51,11 @@ from repro_torch.faults import degradation_curve
 from repro_torch.serve import ServeModelCfg, StepCostTable
 from repro_torch.serve.__main__ import main as serve_main
 from repro_torch.system import SystemConfig
+from repro_torch.configs import ARCHS, ShapeConfig, reduced
+from repro_torch.convert import from_jax_params
+from repro_torch.launch import steps
+from repro_torch.launch.serve import main as lm_serve_main
+from repro_torch.models import model_zoo, transformer as T
 import warnings
 with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
@@ -59,6 +65,7 @@ art = flow.compile("tiny_cnn", default_chip(),
 isa = art.ensure_model().isa
 tiny = dict(n_layers=1, d_model=64, n_heads=2, vocab=64, max_prompt=8,
             max_new=8)
+lm = reduced(ARCHS["phi4-mini-3.8b"])
 calls = [resolve_device,
          lambda: ref.random_init(art.cg),
          lambda: to_tensor([1, 2]),
@@ -86,7 +93,15 @@ calls = [resolve_device,
          lambda: serve_main(["--fidelity", "simulate", "--chips", "2",
                              "--n-layers", "1", "--d-model", "64",
                              "--n-heads", "2", "--vocab", "64",
-                             "--max-prompt", "8", "--max-new", "8"])]
+                             "--max-prompt", "8", "--max-new", "8"]),
+         lambda: lm_serve_main([]),
+         lambda: lm_serve_main(["--reduced"]),
+         lambda: T.init_params(lm, torch.Generator()),
+         lambda: T.init_decode_state(lm, None, 1, 8),
+         lambda: steps.make_decode_step(lm, None,
+                                        ShapeConfig("t", 8, 1, "decode")),
+         lambda: model_zoo.init(lm),
+         lambda: from_jax_params(lm, {})]
 # only the host engines, asked for by name, need no device
 assert art.evaluate("simulate", engine="vector").cycles > 0
 for call in calls:
@@ -120,6 +135,14 @@ _SYSTEM_SERVE_MODULES = ["system", "system.config", "system.partition",
                          "serve.rng", "serve.metrics", "serve.policy",
                          "serve.workload", "serve.engine",
                          "serve.trace_replay", "serve.__main__"]
+_LM_MODULES = ["configs", "configs.base", "configs.phi4_mini_3_8b",
+               "configs.mamba2_780m", "data", "data.pipeline", "quant",
+               "quant.quantize", "kernels.ops", "kernels.decode_attention",
+               "kernels.ssd_decode", "kernels.triton_source", "models",
+               "models.analysis_flags", "models.layers", "models.ssm",
+               "models.transformer", "models.model_zoo", "launch",
+               "launch.tuning", "launch.meshctx", "launch.steps",
+               "launch.serve"]
 
 
 def test_imports_no_jax_no_repro():
@@ -127,7 +150,8 @@ def test_imports_no_jax_no_repro():
     assert proc.returncode == 0, proc.stderr
     walked = proc.stdout.split()
     assert int(walked[-1]) >= 60                  # every module walked
-    for mod in _SIM_MODULES + _EXPLORE_MODULES + _SYSTEM_SERVE_MODULES:
+    for mod in (_SIM_MODULES + _EXPLORE_MODULES + _SYSTEM_SERVE_MODULES
+                + _LM_MODULES):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -137,7 +161,7 @@ def test_entry_points_raise_without_card():
         pytest.skip("a CUDA device is present: the entry points use it")
     proc = _run(_NO_CARD)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "19"
+    assert proc.stdout.split()[-1] == "26"
 
 
 def test_package_source_names_no_jax_or_repro():
@@ -196,6 +220,30 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 print("help ok")
 """
+
+
+_LM_SERVE_HELP = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv = ["repro_torch.launch.serve", "--help"]
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m == "triton" or m.startswith("triton."))
+assert not leaked, leaked
+print("help ok")
+"""
+
+
+def test_lm_serve_cli_help_without_jax_repro_or_triton():
+    proc = _run(_LM_SERVE_HELP)
+    assert proc.returncode == 0, proc.stderr
+    assert "python -m repro_torch.launch.serve" in proc.stdout
+    assert "--arch" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.split()[-2:] == ["help", "ok"]
 
 
 def test_serve_cli_help_without_jax_or_repro():
