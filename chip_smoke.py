@@ -7,8 +7,9 @@ Phases (none catches its own failure; any mismatch raises and the
 script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc`` in a
-   thread) while Triton compiles the decode kernels phase 10 launches
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, each in its own thread, all started together) while Triton
+   compiles the SSD step's variants phase 10 launches
    (:func:`build_triton_kernels`), timed as set-up;
 2. hold the kernel (``cim_mvm`` on CUDA tensors) against its plain
    PyTorch version ``bitserial_mvm_ref``, bit-exact (tolerance 0): the
@@ -105,20 +106,26 @@ script exits non-zero):
 
 10. LM serving (``python -m repro_torch.launch.serve``) and its kernels:
    (a) each new kernel against its plain version on the card —
-   ``gqa_decode_attention`` (Triton) at phi4-mini's heads (KV 8, G 3,
-   D 128) for (B, S_cache) = (2, 8), (4, 64), (32, 4096), (8, 32768) and
+   ``gqa_decode_attention`` (CUDA, one launch a call) at phi4-mini's
+   heads (KV 8, G 3, D 128) for (B, S_cache) = (2, 8), (4, 64), (32, 4096), (8, 32768) and
    h2o-danube's (D 120, window 4096, 4096- and 5120-slot rings) before
    and after one and two wraps, bf16 and INT8 caches (and float32 at
    (2, 8)), within ``ATTN_TOL_F32`` of the plain version on fp32 inputs
    and ``ATTN_TOL_REF`` of it in the reference's dtypes, both scaled to
    each case's rms, with a planted fault that must fail at 4096 slots and
    up, timed beside its bytes bound and
-   ``scaled_dot_product_attention`` (GQA) on the bf16 cache;
+   ``scaled_dot_product_attention`` (GQA) on the bf16 cache, each case's
+   splits and launches per call (1) recorded; two multi-split calls of
+   the (8, 32768) bf16 case captured in one CUDA graph and replayed 3
+   times, equal to eager calls (the split combine's ticket counters put
+   themselves back), the last replay after an eager multi-split call of
+   a larger B * KV (the counters stay where the graph saw them);
    ``ssd_decode_step`` (Triton) at mamba2-780m's 48 heads, d_state 128,
    head_dim 64 for B = 2, 4 and 128 (bf16 state), within ``SSD_TOL_*``;
    ``int8_matmul`` (CUDA, the bit-serial source's one-pass
-   instantiation) bit-exact to ``cim_mvm`` on the 55 MVMs of phase 3
-   and the int32 wrap-around, timed beside ``torch._int_mm``; (b)
+   instantiation) bit-exact to ``cim_mvm`` on the 55 MVMs of phase 3,
+   on ``QL_SHAPES`` (timed one by one) and the int32 wrap-around, timed
+   beside ``torch._int_mm``; (b)
    phi4-mini-3.8b and mamba2-780m at published widths and vocabularies,
    cut to 2 layers: 8 teacher-forced decode steps with the kernels on
    the card and the plain versions on the CPU, logits within
@@ -128,9 +135,9 @@ script exits non-zero):
    (``tuning.tuned(int8_kv_cache=True)``) and the default mamba2-780m,
    each with the decode kernels' launches counted (one per attention or
    SSD layer per token), its prefill s, decode s and tok/s, peak device
-   memory and, with ``--profile``, the device-busy share of 8 steady
-   decode steps; (d) ``quantized_linear`` driven at phi4-mini's decode
-   projections, both routes equal to each other and to
+   memory and the device-busy share of 8 steady decode steps (one
+   ``torch.profiler`` trace); (d) ``quantized_linear`` driven at
+   phi4-mini's decode projections, both routes equal to each other and to
    ``quantized_linear_ref`` (tolerance 0) and the backward, with
    ``int8_matmul``'s and the bit-serial kernel's launches counted.
 
@@ -246,6 +253,13 @@ ATTN_DANUBE_CASES = [(4, 4096, (4095, 4096 + 1000, 2 * 4096 + 17)),
 ATTN_TOL_F32 = {"bfloat16": (0.05, 2.0 ** -7), "float32": (4e-6, 4e-6)}
 ATTN_TOL_REF = {"bfloat16": (0.25, 2.0 ** -6), "float32": (4e-6, 4e-6)}
 ATTN_FAULT_MIN_S = 4096
+ATTN_FAULT_SLOTS = 64         # the planted fault's missing slots
+# the CUDA-graph check: a phi4-mini (B, S_cache) case and two positions
+# captured in one graph (both must take more than one split: the planner
+# gives (32, 4096) one), and the (B, S_cache) of an eager call of a larger
+# B * KV, also split, made between two replays
+ATTN_GRAPH = (8, 32768, (32767, 16383))
+ATTN_GRAPH_LARGER = (12, 8192)
 # 10a SSD step: mamba2-780m's (heads, groups, d_state, head_dim), batches
 # (10b's 2, 10c's 4, and 128)
 SSD_MAMBA2 = (48, 1, 128, 64)
@@ -1470,32 +1484,23 @@ def serve_phase(cli_extra=(), golden=True, device=None) -> dict:
 
 
 def build_triton_kernels(device) -> float:
-    """Compile every Triton kernel variant phase 10 launches (one per
-    head geometry, cache dtype and window; the SSD step at mamba2-780m's
-    widths) by a launch on one-slot inputs: the seconds taken.  The
-    compiles then happen at set-up, beside ``nvcc``, and not inside the
-    timed phases."""
+    """Compile the SSD step's Triton variants phase 10 launches (the
+    wrapper's pick at each of ``SSD_BATCHES`` at mamba2-780m's widths) by
+    a launch on zero inputs: the seconds taken.  The compiles then happen
+    at set-up, beside ``nvcc``, and not inside the timed phases."""
     import torch
-    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ssd_decode as SD
     t0 = time.perf_counter()
-    for arch, kvh, g, d, window in (ATTN_PHI4, ATTN_DANUBE):
-        kinds = [(torch.bfloat16, torch.bfloat16),
-                 (torch.bfloat16, torch.int8)]
-        if arch == ATTN_PHI4[0]:
-            kinds.append((torch.float32, torch.float32))
-        for qt, ct in kinds:
-            q = torch.zeros((1, kvh, g, d), dtype=qt, device=device)
-            c = torch.zeros((1, 1, kvh, d), dtype=ct, device=device)
-            DA.gqa_decode_attention(q, c, c, 0, window)
     nh, ng, n, p = SSD_MAMBA2
-    SD.ssd_decode_step(
-        torch.zeros((1, nh, n, p), dtype=torch.bfloat16, device=device),
-        torch.zeros((1, nh, p), dtype=torch.bfloat16, device=device),
-        torch.zeros((1, nh), device=device), torch.zeros(nh, device=device),
-        torch.zeros((1, ng, n), dtype=torch.bfloat16, device=device),
-        torch.zeros((1, ng, n), dtype=torch.bfloat16, device=device),
-        torch.zeros(nh, device=device))
+    for b in SSD_BATCHES:
+        SD.ssd_decode_step(
+            torch.zeros((b, nh, n, p), dtype=torch.bfloat16, device=device),
+            torch.zeros((b, nh, p), dtype=torch.bfloat16, device=device),
+            torch.zeros((b, nh), device=device),
+            torch.zeros(nh, device=device),
+            torch.zeros((b, ng, n), dtype=torch.bfloat16, device=device),
+            torch.zeros((b, ng, n), dtype=torch.bfloat16, device=device),
+            torch.zeros(nh, device=device))
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -1533,6 +1538,75 @@ def scaled_within(got, want, scale: float, rtol: float) -> tuple:
     return err, err / rms if rms else (float("inf") if err else 0.0), ok
 
 
+def attention_graph_check(q, kc, vc, positions, window, failures) -> dict:
+    """Two calls of the decode attention (one per position) captured in
+    one CUDA graph, replayed 3 times: each replay's outputs must equal
+    eager calls' bit for bit.  With several splits this shows that the
+    kernel's ticket counters are back at 0 after every launch.  Before
+    the last replay an eager call of a larger B * KV (``ATTN_GRAPH_LARGER``,
+    also split) draws tickets too: the counters must not move, and the
+    replay must still equal the eager calls."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    b, s_cache, kvh, d = kc.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    boxes = DA.row_boxes(kvh, d, kc.element_size())
+    big_b, big_s = ATTN_GRAPH_LARGER
+
+    def splits_of(bb, s_end):
+        return DA.attention_splits(bb * kvh, s_end, boxes, sms)[0]
+
+    splits = [splits_of(b, min(s_cache, pos + 1)) for pos in positions]
+    big_splits = splits_of(big_b, big_s)
+    if min(splits) < 2 or big_splits < 2 or big_b <= b:
+        failures.append(f"graph check: splits {splits} and {big_splits} at "
+                        f"B {big_b}, not several / not larger")
+    eager = [DA.gqa_decode_attention(q, kc, vc, pos, window)
+             for pos in positions]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for pos in positions:
+            DA.gqa_decode_attention(q, kc, vc, pos, window)
+    torch.cuda.current_stream().wait_stream(side)
+    tickets = DA._COUNTERS[q.device.index].data_ptr()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [DA.gqa_decode_attention(q, kc, vc, pos, window)
+                for pos in positions]
+    same = []
+    for r in range(3):
+        if r == 2:
+            gen = torch.Generator(q.device).manual_seed(1)
+            bq = torch.randn((big_b, kvh, q.shape[2], d), generator=gen,
+                             device=q.device, dtype=q.dtype)
+            bk, bv = (torch.randn((big_b, big_s, kvh, d), generator=gen,
+                                  device=q.device, dtype=kc.dtype)
+                      for _ in range(2))
+            big = DA.gqa_decode_attention(bq, bk, bv, big_s - 1, window)
+            big_ok = torch.equal(
+                big, DA.gqa_decode_attention(bq, bk, bv, big_s - 1, window))
+            moved = DA._COUNTERS[q.device.index].data_ptr() != tickets
+            if moved or not big_ok:
+                failures.append(f"graph check: the B {big_b} call moved the "
+                                f"counters ({moved}) or differed between "
+                                f"two calls ({not big_ok})")
+            del bq, bk, bv, big
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(o, e) for o, e in zip(outs, eager)))
+    del graph
+    if not all(same):
+        failures.append(f"graph check: replays equal to eager {same}")
+    log(f"  attention B{b} S{s_cache} bf16, positions {list(positions)} "
+        f"({splits} splits) captured in one CUDA graph: 3 replays equal "
+        f"to eager calls, the last after a B{big_b} S{big_s} call "
+        f"({big_splits} splits): {same}")
+    return {"B": b, "S_cache": s_cache, "positions": list(positions),
+            "splits": splits, "larger": [big_b, big_s, big_splits],
+            "replays_equal": same}
+
+
 def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     """Phase 10a: each new kernel against its plain version on the card,
     on the shapes phase 10's runs launch and the cases of the port's
@@ -1549,6 +1623,8 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     dev = torch.device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     out = {"attention": [], "ssd": [], "int8_matmul": {}, "wall_s": {}}
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
     t0 = time.perf_counter()
 
     # -- gqa_decode_attention ------------------------------------------------
@@ -1578,11 +1654,15 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
             tol32, tol_ref = ATTN_TOL_F32[cdt], ATTN_TOL_REF[cdt]
             for pos in positions:
                 case = f"{arch} B{b} S{s_cache} {kind} pos {pos}"
+                before = DA.gqa_decode_attention.launches
                 t_first = time.perf_counter()
                 got = DA.gqa_decode_attention(qk, kc, vc, pos, window)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 t_first = time.perf_counter() - t_first
+                per_call = DA.gqa_decode_attention.launches - before
+                if dev.type == "cuda" and per_call != 1:
+                    failures.append(f"{case}: {per_call} launches a call")
                 want = DA.gqa_decode_attention_ref(qk, kc, vc, pos, window)
                 want32 = DA.gqa_decode_attention_ref(q32, k32, v32, pos,
                                                      window)
@@ -1598,8 +1678,9 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
                 if s_cache >= ATTN_FAULT_MIN_S and kind != "f32":
                     # planted fault: the last block of the stretch
                     # dropped, or the window one block short
-                    f_pos, f_win = ((pos - DA.BLOCK_S, None) if window
-                                    is None else (pos, window - DA.BLOCK_S))
+                    f_pos, f_win = ((pos - ATTN_FAULT_SLOTS, None)
+                                    if window is None
+                                    else (pos, window - ATTN_FAULT_SLOTS))
                     bad = DA.gqa_decode_attention(qk, kc, vc, f_pos, f_win)
                     _, fault_rel, caught = scaled_within(bad, want32, *tol32)
                     caught = not caught
@@ -1609,6 +1690,8 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
                                         f"|err| / rms {fault_rel:.3g}")
                 s_end = min(s_cache, pos + 1)
                 elt = {"int8": 1, "bf16": 2, "f32": 4}[kind]
+                splits = DA.attention_splits(
+                    b * kvh, s_end, DA.row_boxes(kvh, d, elt), sms)[0]
                 n_bytes = 2 * b * s_end * kvh * d * elt \
                     + 2 * b * kvh * g * d * qk.element_size()
                 n_ops = 4.0 * b * kvh * g * s_end * d
@@ -1622,7 +1705,8 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
                        "err_f32_over_rms": rel32,
                        "rms": float(want32.float().square().mean().sqrt()),
                        "fault_err_over_rms": fault_rel,
-                       "first_call_s": t_first,
+                       "first_call_s": t_first, "splits": splits,
+                       "launches_per_call": per_call,
                        "ms": dev_ms(lambda: DA.gqa_decode_attention(
                            qk, kc, vc, pos, window), dev),
                        "plain_ms": dev_ms(lambda: DA.gqa_decode_attention_ref(
@@ -1654,11 +1738,15 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
                          else f"{row['library_ms']:.4f}")
                 fault_s = ("" if fault_rel is None
                            else f", planted fault {fault_rel:.3g}")
-                log(f"  attention {case}: first call {t_first:.3f} s, "
+                log(f"  attention {case}: {splits} split(s), {per_call} "
+                    f"launch(es) a call, first call {t_first:.3f} s, "
                     f"|err| / rms {rel:.3g} (plain), {rel32:.3g} (fp32 "
                     f"plain){fault_s}; kernel {row['ms']:.4f} ms, plain "
                     f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                     f" ms ({row['bound_by']}), SDPA {lib_s} ms")
+        if (b, s_cache) == ATTN_GRAPH[:2] and dev.type == "cuda":
+            out["attention_graph"] = attention_graph_check(
+                q, *caches["bf16"], ATTN_GRAPH[2], window, failures)
         del caches, k32, v32
     if failures:
         raise AssertionError("gqa_decode_attention: " + "; ".join(failures))
@@ -1703,10 +1791,12 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
                "bound_ms": 1e3 * max(t_b, t_o),
                "bound_by": "bytes" if t_b >= t_o else "operations",
                "library_ms": None}
+        row["block_p"] = SD.ssd_grid(b * nh, p, sms)
         out["ssd"].append(row)
         log(f"  ssd_decode_step B{b}: err y {err_y:.2e} h {err_h:.2e}, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"kernel {row['ms']:.4f} ms (BLOCK_P {row['block_p']}), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
 
     out["wall_s"]["ssd"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1734,6 +1824,28 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
             tot[key] += count * dev_ms(fn, dev)
     tot["bound_ms"], tot["bound_by"] = bound(
         [(a.shape[0], a.shape[1], m.shape[1]) for _, a, m in recorded])
+    # each of 10d's shapes alone (quantized_linear at phi4-mini's decode
+    # projections, batch 4), bit-exact to the bit-serial kernel
+    tot["ql_shapes"] = []
+    for mm, kk, nn in QL_SHAPES:
+        a = torch.randint(-128, 128, (mm, kk), generator=gen, device=dev,
+                          dtype=torch.int8)
+        m = torch.randint(-128, 128, (kk, nn), generator=gen, device=dev,
+                          dtype=torch.int8)
+        if not torch.equal(int8_matmul(a, m), cim_mvm(a, m)):
+            raise AssertionError(f"int8_matmul != cim_mvm on {mm}x{kk}x{nn}")
+        b_ms, b_by = bound([(mm, kk, nn)])
+        r = {"M": mm, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
+             "ms": dev_ms(lambda: int8_matmul(a, m), dev),
+             "plain_ms": dev_ms(lambda: mvm_ref(a, m), dev),
+             "library_ms": None}
+        if dev.type == "cuda":
+            ia, iw = int_mm_operands(a, m)
+            r["library_ms"] = dev_ms(lambda: torch._int_mm(ia, iw), dev)
+        tot["ql_shapes"].append(r)
+        log(f"  int8_matmul {mm}x{kk}x{nn}: kernel {r['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+            f"torch._int_mm {r['library_ms']} ms")
     # the int32 wrap-around: N = 3 (the chooser splits K) and N = 64 per
     # SM (a tile per SM: one K slice)
     k = (1 << 17) + 1
@@ -2030,20 +2142,24 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     report = {"card": card, "paths": {}, "shapes": []}
 
-    # 1. build: nvcc in a thread while Triton compiles the decode kernels ----
+    # 1. build: one nvcc per CUDA source, each in a thread, while Triton
+    # compiles the SSD step ---------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import nvcc
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        built = pool.submit(bsm.build_library)
+    with ThreadPoolExecutor(2) as pool:
+        built = [pool.submit(bsm.build_library), pool.submit(DA.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev)
-        lib = built.result()
+        libs = [f.result() for f in built]
     report["build_s"] = time.perf_counter() - t0
-    log(f"build: {lib.name} and the Triton decode kernels in "
-        f"{report['build_s']:.2f} s (Triton "
+    log(f"build: {', '.join(lib.name for lib in libs)} and the Triton SSD "
+        f"step in {report['build_s']:.2f} s (Triton "
         f"{report['triton_build_s']:.2f} s of it)")
-    for line in bsm.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, text in sorted(nvcc.BUILD_LOGS.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     # 2. kernel vs plain version on the CPU tests' shapes ---------------------
     rng = torch.Generator().manual_seed(args.seed)
@@ -2331,7 +2447,7 @@ def main() -> int:
             f"agrees {100 * r['argmax_agree']:.1f}%; card {r['device_s']:.2f}"
             f" s, cpu {r['cpu_s']:.2f} s of {r['wall_s']:.1f} s")
     log("phase 10c: python -m repro_torch.launch.serve at full depth")
-    lms = lm_serve_phase(profile=args.profile)
+    lms = lm_serve_phase(profile=True)
     log("phase 10d: quantized_linear driven at phi4-mini's projections")
     ql = ql_drive(dev, args.seed)
     launches_total += ql["bitserial_launches"]
@@ -2379,8 +2495,8 @@ def main() -> int:
         "library_ms": i8["library_ms"],
     }, {
         "name": "gqa_decode_attention",
-        "route": "triton",
-        "source": "src/repro_torch/kernels/csrc/gqa_decode_attention.py",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gqa_decode_attention.cu",
         "replaces": "src/repro/models/layers.py:319",
         "launches": sum(r["attention_launches"] for r in runs),
         "max_abs_err": max(r["max_abs_err"] for r in lmk["attention"]),
@@ -2409,8 +2525,8 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    log("kernels: bitserial_mvm and int8_matmul (cuda, sm_90a), "
-        "gqa_decode_attention and ssd_decode_step (triton)")
+    log("kernels: bitserial_mvm, int8_matmul and gqa_decode_attention "
+        "(cuda, sm_90a), ssd_decode_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,12 +30,12 @@ find:
   :mod:`repro_torch.data`, :mod:`repro_torch.quant`,
   :mod:`repro_torch.models` and :mod:`repro_torch.launch` (the serving
   entry point ``python -m repro_torch.launch.serve``), with the decode
-  attention and the SSD step as Triton kernels;
+  attention as a CUDA kernel and the SSD step as a Triton kernel;
 * :mod:`repro_torch.convert` — carries the JAX package's numpy
   weights/inputs/quantization and LM parameters across as tensors.
 
 The package imports ``torch`` and numpy only (``triton`` inside the
-Triton kernels' launchers, at first use).  Entry points that touch
+Triton kernel's launcher, at first use).  Entry points that touch
 tensors run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -1,7 +1,9 @@
 """Kernels: the bit-serial CIM MVM and the direct INT8 GEMM as one
 hand-written CUDA source for Hopper (:mod:`.bitserial_mvm`), the LM
-decode kernels in Triton (:mod:`.decode_attention`, :mod:`.ssd_decode`;
-sources under ``csrc/``, loaded by :mod:`.triton_source`), their plain
+decode attention in CUDA (:mod:`.decode_attention`; both CUDA sources
+built by :mod:`.nvcc` at first use), the SSD decode step in Triton
+(:mod:`.ssd_decode`, its source loaded by :mod:`.triton_source`;
+sources under ``csrc/``), their plain
 PyTorch versions (:mod:`.ref` and beside each wrapper) and the public
 wrappers (:mod:`.ops`: ``cim_mvm``, ``int8_matmul``,
 ``quantized_linear``)."""

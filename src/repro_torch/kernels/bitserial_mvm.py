@@ -4,10 +4,8 @@ the hand-written CUDA kernel.
 Counterpart of :mod:`repro.kernels.bitserial_mvm` (the Pallas TPU
 kernel).  The kernel, ``csrc/bitserial_mvm.cu``, is CUDA C++ for
 ``sm_90a``; it is compiled with ``nvcc`` into a shared library with a
-plain C interface at first use, from this package's sources only, into
-``build/repro_torch/`` at the repository root, and loaded with
-``ctypes``.  A library is named by a digest
-of its source and flags, so an edited source is rebuilt.
+plain C interface at first use (:mod:`.nvcc`) and loaded with
+``ctypes``.
 
 :func:`bitserial_mvm` keeps the JAX signature and dispatches on the
 tensors' device: CUDA tensors launch the kernel (a build or launch
@@ -23,27 +21,21 @@ behind :func:`repro.kernels.ops.int8_matmul`) on the same tiles.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from functools import lru_cache
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from . import nvcc
 from .ref import bitserial_mvm_ref
 
 __all__ = ["bitserial_mvm", "bitserial_mvm_cuda", "int8_matmul_cuda",
            "choose_blocks",
            "resolve_blocks", "check_tile", "build_library", "SOURCE",
-           "NVCC_FLAGS", "TILES", "BK"]
+           "TILES", "BK"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bitserial_mvm.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "bitserial_mvm.cu"
 # (block_m, block_n) output tiles the kernel is instantiated for, and the
 # depth of one pipeline step: must match the .cu
 TILES = ((128, 128), (128, 64), (64, 64), (16, 64))
@@ -51,48 +43,12 @@ BK = 64
 H100_SMS = 132
 
 _LIB: Optional[ctypes.CDLL] = None
-# nvcc's output of the last build in this process (register/smem report)
-BUILD_LOG = ""
-
-
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
-             if os.environ.get("CUDA_HOME") else None,
-             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                       "PATH): the bit-serial CUDA kernel cannot be built")
 
 
 def build_library() -> Path:
     """Compile ``csrc/bitserial_mvm.cu`` (if not built yet); return the
     shared library's path.  Raises on any compiler failure."""
-    global BUILD_LOG
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = BUILD_DIR
-    lib = out_dir / f"libbitserial_mvm-{tag[:16]}.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, lib)
-    return lib
+    return nvcc.build_library(SOURCE)
 
 
 def _library() -> ctypes.CDLL:

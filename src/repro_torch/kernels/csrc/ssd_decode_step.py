@@ -14,10 +14,17 @@ fp32, as the reference does.
 Bound on this card: the state's bytes.  A step reads the
 ``(B, H, N, P)`` state once and writes it once (4 bytes an element in
 bf16), against about 5 operations an element: the kernel is bound by
-its bytes at 3.35 TB/s.  Design: one program per (b, head) holds its
-whole ``N x P`` tile (128 x 64 at mamba2-780m) in registers, fuses the
-decay, the rank-1 update and the reduction over ``N`` into one pass, and
-writes the new state over the old in place.
+its bytes at 3.35 TB/s.  Design: program ``(b * H + head, p-block)``
+holds an ``N x BLOCK_P`` slice of the state (all of ``d_state``, so y's
+reduction over ``N`` stays inside the program and no step crosses
+programs), fuses the decay, the rank-1 update and the reduction into one
+pass, and writes the new state over the old in place.  The wrapper cuts
+``P`` into ``BLOCK_P`` columns only when ``B * H`` alone would leave SMs
+idle (B 2: 96 programs on 132 SMs); each row of a slice stays
+``BLOCK_P`` contiguous elements, 64 bytes or more in bf16 (cutting B 4's
+192 programs into 768 of 32-byte rows, to spread the bytes evenly over
+the SMs, measured slower on an H100).  B, C, dt, A and D are loaded once
+per program.
 """
 
 import triton
@@ -34,7 +41,7 @@ def ssd_decode_step_kernel(h_ptr, y_ptr, x_ptr, dt_ptr, alog_ptr, b_ptr,
     hh = pid % NH
     grp = hh // (NH // G)
     n = tl.arange(0, BLOCK_N)
-    p = tl.arange(0, BLOCK_P)
+    p = tl.program_id(1) * BLOCK_P + tl.arange(0, BLOCK_P)
     nmask = n < N
     pmask = p < P
     hmask = nmask[:, None] & pmask[None, :]

@@ -12,13 +12,21 @@ caller's, as the attention caches are.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
 
 from . import triton_source
 
-__all__ = ["ssd_decode_step", "ssd_decode_step_ref", "ssd_decode_step_cuda"]
+__all__ = ["ssd_decode_step", "ssd_decode_step_ref", "ssd_decode_step_cuda",
+           "ssd_grid", "NUM_WARPS"]
+
+# the least columns of a program's slice (64-byte rows in bf16: narrower
+# rows measured slower), and the kernel's warps (fastest at every batch
+# chip_smoke.py serves mamba2-780m at)
+MIN_BLOCK_P = 32
+NUM_WARPS = 2
 
 
 def ssd_decode_step_ref(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -58,8 +66,29 @@ def _check(h, x, dt, a_log, b, c, d):
             raise TypeError(f"dt, A_log and D must be float32, got {t.dtype}")
 
 
+def ssd_grid(bh: int, p: int, sms: int) -> int:
+    """``BLOCK_P``, the columns of a program's slice, for ``bh`` = B * H
+    programs of head dimension ``p`` on ``sms`` SMs: all of P while
+    that gives every SM a program, else P halved until it does or the
+    slice is ``MIN_BLOCK_P`` columns."""
+    bp = 1 << (p - 1).bit_length()
+    while bp > MIN_BLOCK_P and bh * _cdiv(p, bp) < sms:
+        bp //= 2
+    return bp
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ssd_decode_step_cuda(h, x, dt, a_log, b, c, d):
-    """Launch the kernel; ``h`` (contiguous) is updated in place."""
+    """Launch the kernel; ``h`` (contiguous) is updated in place.  The
+    slice width comes from :func:`ssd_grid`."""
     _check(h, x, dt, a_log, b, c, d)
     ts = (h, x, dt, a_log, b, c, d)
     if not all(t.is_cuda and t.device == h.device for t in ts):
@@ -69,13 +98,14 @@ def ssd_decode_step_cuda(h, x, dt, a_log, b, c, d):
         raise ValueError("the state must be contiguous (updated in place)")
     x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     bsz, nh, n, p = h.shape
+    bp = ssd_grid(bsz * nh, p, _sms(h.get_device()))
     mod = triton_source.load("ssd_decode_step")
     y = torch.empty((bsz, nh, p), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.get_device()):
-        mod.ssd_decode_step_kernel[(bsz * nh,)](
+        mod.ssd_decode_step_kernel[(bsz * nh, _cdiv(p, bp))](
             h, y, x, dt, a_log, b, c, d, NH=nh, G=b.shape[1], N=n, P=p,
-            BLOCK_N=1 << (n - 1).bit_length(),
-            BLOCK_P=1 << (p - 1).bit_length(), num_warps=4)
+            BLOCK_N=1 << (n - 1).bit_length(), BLOCK_P=bp,
+            num_warps=NUM_WARPS)
     ssd_decode_step.launches += 1
     return y, h
 

@@ -1,8 +1,9 @@
 """Loading the Triton kernels' sources at first use.
 
-The Triton kernels live as plain modules under ``csrc/`` (beside the
-CUDA source), outside the package: they import ``triton`` at their top,
-and this package is imported where there is no ``triton``.  A wrapper
+The Triton kernels (the SSD decode step) live as plain modules under
+``csrc/`` (beside the CUDA sources), outside the package: they import
+``triton`` at their top, and this package is imported where there is no
+``triton``.  A wrapper
 loads its source here when it first launches on a CUDA tensor; Triton
 then compiles each kernel at its first launch, into its own cache under
 ``build/repro_torch/triton/`` at the repository root unless

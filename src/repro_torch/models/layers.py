@@ -11,7 +11,7 @@ blocks) that keeps long-context prefill memory O(S·block).
 
 The decode attention's core (scores, ring mask, softmax, context) runs
 in :func:`repro_torch.kernels.decode_attention.gqa_decode_attention`:
-the Triton kernel on CUDA, its plain version on the CPU.  The KV caches
+the CUDA kernel on CUDA, its plain version on the CPU.  The KV caches
 are updated in place (the reference's ``dynamic_update_slice`` on a
 donated state).  dtypes follow the reference at every step: norms in
 fp32 and back, RoPE tables in fp32 cast to x's dtype, scores in the
