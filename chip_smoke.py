@@ -122,10 +122,18 @@ script exits non-zero):
    a larger B * KV (the counters stay where the graph saw them);
    ``ssd_decode_step`` (Triton) at mamba2-780m's 48 heads, d_state 128,
    head_dim 64 for B = 2, 4 and 128 (bf16 state), within ``SSD_TOL_*``;
-   ``int8_matmul`` (CUDA, the bit-serial source's one-pass
-   instantiation) bit-exact to ``cim_mvm`` on the 55 MVMs of phase 3,
-   on ``QL_SHAPES`` (timed one by one) and the int32 wrap-around, timed
-   beside ``torch._int_mm``; (b)
+   ``int8_matmul`` (``ops.int8_matmul``, routed by its planner) bit-exact
+   to ``cim_mvm`` on the 55 MVMs of phase 3 (summed beside the tile route,
+   the bit-serial source's one-pass tiles, and ``torch._int_mm``); the
+   stream kernel (CUDA, ``csrc/int8_matmul.cu``) at ``QL_SHAPES``, each
+   plan asserted as ``STREAM_PLANS``, bit-exact to ``cim_mvm`` and to its
+   plain split algorithm, timed one by one hot (graph replay of the same
+   operands) and cold (the weight read from HBM) beside the tile route in
+   the same call (which it must beat), ``torch._int_mm`` and its bound;
+   the edge cases ``I8_EDGES`` and the int32 wrap-around on the stream
+   route, the wrap-around on the tiles with one K slice and split K, a
+   CUDA-graph replay of the four shapes equal to eager calls, and the
+   floor of a graph-replayed stream launch; (b)
    phi4-mini-3.8b and mamba2-780m at published widths and vocabularies,
    cut to 2 layers: 8 teacher-forced decode steps with the kernels on
    the card and the plain versions on the CPU, logits within
@@ -139,14 +147,19 @@ script exits non-zero):
    ``torch.profiler`` trace); (d) ``quantized_linear`` driven at
    phi4-mini's decode projections, both routes equal to each other and to
    ``quantized_linear_ref`` (tolerance 0) and the backward, with
-   ``int8_matmul``'s and the bit-serial kernel's launches counted.
+   ``int8_matmul``'s launches counted by route (all 4 on the stream
+   route) and the bit-serial kernel's.
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 10d's, the decode kernels' 10c's.  Each record's times are device times
-(CUDA-graph replay): the bit-serial kernel and ``int8_matmul`` summed
-over the 55 MVMs of phase 3, the decode attention at 10c's shape (B 4,
-64 slots, bf16, the last position), the SSD step at B 4.  The
+(CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
+phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
+cold from HBM, as a decode step reads it (``previous_ms``: the tile
+route; ``ms_l2_resident``: the same operands replayed, the weight in
+L2; ``ms_55``: over the 55 MVMs of phase 3, the entry's definition
+before the stream kernel); the decode attention at 10c's shape (B 4,
+64 slots, bf16, the last position); the SSD step at B 4.  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -268,6 +281,17 @@ SSD_TOL_Y = (1e-3, 1e-4)      # fp32 output: the same ops, another order
 SSD_TOL_H = (1e-6, 2.0 ** -7)  # bf16 state: one ulp of a rounding flip
 # 10a/10d quantized_linear at phi4-mini's projections for one decode
 # batch of 4 tokens: q, k/v, MLP in/gate, MLP out
+# the stream kernel's plan at each of QL_SHAPES on an H100 (132 SMs):
+# (route, K rows a slice, K slices, blocks)
+STREAM_PLANS = [("stream", 768, 4, 96), ("stream", 384, 8, 64),
+                ("stream", 1536, 2, 128), ("stream", 2048, 4, 96)]
+# 10a: int8_matmul's edge cases on the stream route, (M, K, N)
+I8_EDGES = [(m, k, n) for m in (1, 3, 16) for n in (16, 1008)
+            for k in (64, 3000)]
+# ... and the cluster's combine at its edges, with the split each must
+# take, (K rows a slice, slices): every slice one stage; the largest
+# (non-portable) cluster, where x's limit raises the split to 16
+I8_CLUSTER_EDGES = {(4, 256, 1024): (128, 2), (16, 65536, 16): (4096, 16)}
 QL_SHAPES = [(4, 3072, 3072), (4, 3072, 1024), (4, 3072, 8192),
              (4, 8192, 3072)]
 # 10b: full widths and vocab, cut to 2 layers, 8 teacher-forced steps
@@ -324,18 +348,26 @@ def cuda_ms(fn, reps: int) -> float:
 def graph_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()``: ``reps`` calls captured in one CUDA
     graph (after a warm-up on a side stream), the graph replayed 3 times
-    between CUDA events.  The host's launch cost is out of the window;
-    each call's device work runs in order, as issued."""
+    between CUDA events (:func:`graph_seq_ms`).  The host's launch cost
+    is out of the window; each call's device work runs in order, as
+    issued."""
+    return graph_seq_ms([fn] * reps)
+
+
+def graph_seq_ms(fns) -> float:
+    """Mean device ms of the calls ``fns``, captured in order in one CUDA
+    graph (after a warm-up on a side stream) and replayed 3 times."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for f in fns:
+            f()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -346,7 +378,7 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     del graph
-    return start.elapsed_time(end) / (3 * reps)
+    return start.elapsed_time(end) / (3 * len(fns))
 
 
 def device_profile(fn, top: int = 5):
@@ -1617,6 +1649,7 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ssd_decode as SD
     from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels.ops import cim_mvm, int8_matmul
     from repro_torch.kernels.ref import mvm_ref
 
@@ -1802,7 +1835,10 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     t0 = time.perf_counter()
 
     # -- int8_matmul: bit-exact to the bit-serial kernel ---------------------
-    tot = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    # the 55 MVMs of phase 3 through ops.int8_matmul (the planner's route
+    # for each; large M takes the bit-serial source's tiles) beside the tile
+    # route for all of them (bsm.int8_matmul_cuda)
+    tot = dict.fromkeys(("ms", "previous_ms", "plain_ms", "library_ms"), 0.0)
     n_cmp = 0
     for _, a, m in recorded:
         got = int8_matmul(a, m)
@@ -1814,72 +1850,239 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     for _, a, m in recorded:
         by_shape.setdefault((a.shape[0], a.shape[1], m.shape[1]),
                             [a, m, 0])[2] += 1
+    tot["routes"] = {}
     for (mm, kk, nn), (a, m, count) in by_shape.items():
+        route = I8.plan(mm, nn, kk, sms).route
+        tot["routes"][route] = tot["routes"].get(route, 0) + count
         fns = {"ms": lambda: int8_matmul(a, m),
+               "previous_ms": lambda: bsm.int8_matmul_cuda(a, m),
                "plain_ms": lambda: mvm_ref(a, m)}
         if dev.type == "cuda":
             ia, iw = int_mm_operands(a, m)
             fns["library_ms"] = lambda: torch._int_mm(ia, iw)
+        else:
+            fns.pop("previous_ms")
         for key, fn in fns.items():
             tot[key] += count * dev_ms(fn, dev)
     tot["bound_ms"], tot["bound_by"] = bound(
         [(a.shape[0], a.shape[1], m.shape[1]) for _, a, m in recorded])
-    # each of 10d's shapes alone (quantized_linear at phi4-mini's decode
-    # projections, batch 4), bit-exact to the bit-serial kernel
-    tot["ql_shapes"] = []
-    for mm, kk, nn in QL_SHAPES:
-        a = torch.randint(-128, 128, (mm, kk), generator=gen, device=dev,
-                          dtype=torch.int8)
-        m = torch.randint(-128, 128, (kk, nn), generator=gen, device=dev,
-                          dtype=torch.int8)
-        if not torch.equal(int8_matmul(a, m), cim_mvm(a, m)):
-            raise AssertionError(f"int8_matmul != cim_mvm on {mm}x{kk}x{nn}")
-        b_ms, b_by = bound([(mm, kk, nn)])
-        r = {"M": mm, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
-             "ms": dev_ms(lambda: int8_matmul(a, m), dev),
-             "plain_ms": dev_ms(lambda: mvm_ref(a, m), dev),
-             "library_ms": None}
-        if dev.type == "cuda":
-            ia, iw = int_mm_operands(a, m)
-            r["library_ms"] = dev_ms(lambda: torch._int_mm(ia, iw), dev)
-        tot["ql_shapes"].append(r)
-        log(f"  int8_matmul {mm}x{kk}x{nn}: kernel {r['ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
-            f"torch._int_mm {r['library_ms']} ms")
-    # the int32 wrap-around: N = 3 (the chooser splits K) and N = 64 per
-    # SM (a tile per SM: one K slice)
-    k = (1 << 17) + 1
-    xw = torch.full((2, k), -128, dtype=torch.int8, device=dev)
-    wrapped = (k * 16384 + 2**31) % 2**32 - 2**31
-    if dev.type == "cuda":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        for n, one_slice in ((3, False), (64 * sms, True)):
-            if (bsm.choose_blocks(2, n, k, sms)[2] >= k) != one_slice:
-                raise AssertionError(f"wrap-around N {n}: the chooser's "
-                                     f"K split is not as planned")
-            ww = torch.full((k, n), -128, dtype=torch.int8, device=dev)
-            got = int8_matmul(xw, ww)
-            if not bool((got == wrapped).all()) \
-                    or not torch.equal(got, cim_mvm(xw, ww)):
-                raise AssertionError(f"int8_matmul wrap-around N {n}: "
-                                     f"{got.unique().tolist()}")
-            del ww
-    elif not bool((int8_matmul(
-            xw, torch.full((k, 3), -128, dtype=torch.int8)) == wrapped).all()):
-        raise AssertionError("int8_matmul wrap-around")
-    tot.update(compared=n_cmp, max_abs_err=0)
-    if dev.type != "cuda":
-        tot["library_ms"] = None
-    out["int8_matmul"] = tot
-    log(f"  int8_matmul == cim_mvm on all {n_cmp} main-path MVMs and the "
-        f"int32 wrap-around; summed: kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
-        f"torch._int_mm {tot['library_ms']} ms")
-
+    out["int8_matmul_55"] = tot
+    log(f"  int8_matmul == cim_mvm on all {n_cmp} main-path MVMs (routes "
+        f"{tot['routes']}); summed: kernel {tot['ms']:.4f} ms, the tile route "
+        f"{tot['previous_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms, torch._int_mm {tot['library_ms']} ms")
+    out["int8_matmul"] = int8_matmul_checks(dev, gen, sms)
     out["wall_s"]["int8_matmul"] = time.perf_counter() - t0
     log("  10a wall s: " + ", ".join(f"{k} {v:.1f}"
                                     for k, v in out["wall_s"].items()))
     return out
+
+
+def cold_ms(fn, x, w, device) -> float:
+    """Device ms of ``fn(x, w_i)`` with the weight read cold: calls over
+    enough copies of ``w`` to pass 150 MB (three times the H100's 50 MB L2),
+    each once, captured in one CUDA graph and replayed (:func:`graph_ms`
+    replays the same operands, which then stay in L2).  On the CPU (a
+    rehearsal only) :func:`dev_ms` of one call."""
+    import torch
+    if not str(device).startswith("cuda"):
+        return dev_ms(lambda: fn(x, w), device)
+    n = max(REPS, -(-150_000_000 // w.numel()))
+    copies = [w] + [w.clone() for _ in range(n - 1)]
+    calls = [lambda c=c: fn(x, c) for c in copies]
+    t = graph_seq_ms(calls)
+    del copies, calls
+    return t
+
+
+def plan_row(p) -> dict:
+    """A stream or tile plan as JSON: route, strip width, K slices, blocks,
+    stages of the ring (0 for the tiles), K rows a slice."""
+    from repro_torch.kernels import int8_matmul as I8
+    stream = p.route == "stream"
+    return {"route": p.route, "strip_n": I8.BOX if stream else p.tile[1],
+            "slices": p.slices, "blocks": p.blocks,
+            "stages": I8.STAGES if stream else 0,
+            "k_per_slice": p.k_per_slice}
+
+
+def int8_matmul_checks(device, gen, sms: int) -> dict:
+    """Phase 10a's ``int8_matmul`` at 10d's shapes: the stream kernel
+    (``csrc/int8_matmul.cu``) through ``ops.int8_matmul``, each shape's plan
+    asserted as planned (``STREAM_PLANS``), bit-exact to ``cim_mvm`` and to
+    its plain split algorithm (``int8_matmul_splits_ref``), timed beside
+    the tile route (``bsm.int8_matmul_cuda``, the bit-serial source's one-pass
+    tiles) in the same call, the plain version, ``torch._int_mm`` and the
+    bound, hot (graph replay of the same operands) and cold (the weight
+    read from HBM, :func:`cold_ms`); the edge cases ``I8_EDGES`` and the
+    int32 wrap-around through the stream route; the tile route's
+    wrap-around with one K slice and with split K; a CUDA-graph replay of
+    the four shapes equal to eager calls, with an eager call of another
+    shape between replays; the floor of a graph-replayed stream launch
+    (1x64x16).  Raises on a mismatch."""
+    import torch
+    from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels import int8_matmul as I8
+    from repro_torch.kernels.ops import cim_mvm, int8_matmul
+    from repro_torch.kernels.ref import mvm_ref
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def rnd(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def exact(a, m, label):
+        p = I8.plan(a.shape[0], m.shape[1], a.shape[1], sms)
+        got = int8_matmul(a, m)
+        if not (torch.equal(got, cim_mvm(a, m))
+                and torch.equal(got, I8.int8_matmul_splits_ref(a, m, p))):
+            raise AssertionError(f"int8_matmul {label} {tuple(a.shape)}x"
+                                 f"{tuple(m.shape)} differs from cim_mvm or "
+                                 f"its split algorithm")
+        return p, got
+
+    res = {"ql_shapes": []}
+    keys = ("ms", "previous_ms", "plain_ms", "library_ms", "bound_ms",
+            "ms_cold", "previous_ms_cold", "plain_ms_cold", "library_ms_cold")
+    tot = dict.fromkeys(keys, 0.0)
+    ops_ql = []
+    for (mm, kk, nn), want in zip(QL_SHAPES, STREAM_PLANS):
+        a, m = rnd(mm, kk), rnd(kk, nn)
+        p, _ = exact(a, m, "QL")
+        got_plan = (p.route, p.k_per_slice, p.slices, p.blocks)
+        if got_plan != want:
+            raise AssertionError(f"{mm}x{kk}x{nn}: plan {got_plan}, "
+                                 f"planned {want}")
+        b_ms, b_by = bound([(mm, kk, nn)])
+        r = {"M": mm, "K": kk, "N": nn, "plan": plan_row(p),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "ms": dev_ms(lambda: int8_matmul(a, m), dev),
+             "plain_ms": dev_ms(lambda: mvm_ref(a, m), dev),
+             "previous_ms": None, "library_ms": None, "ms_cold": None,
+             "previous_ms_cold": None, "plain_ms_cold": None,
+             "library_ms_cold": None}
+        if cuda:
+            ia, iw = int_mm_operands(a, m)
+            r["previous_ms"] = dev_ms(lambda: bsm.int8_matmul_cuda(a, m), dev)
+            r["library_ms"] = dev_ms(lambda: torch._int_mm(ia, iw), dev)
+            r["ms_cold"] = cold_ms(int8_matmul, a, m, dev)
+            r["previous_ms_cold"] = cold_ms(bsm.int8_matmul_cuda, a, m, dev)
+            r["plain_ms_cold"] = cold_ms(mvm_ref, a, m, dev)
+            r["library_ms_cold"] = cold_ms(torch._int_mm, ia, iw, dev)
+            if r["ms"] >= r["previous_ms"]:
+                raise AssertionError(
+                    f"int8_matmul {mm}x{kk}x{nn}: the stream kernel "
+                    f"{r['ms']:.4f} ms is not faster than the tile route "
+                    f"{r['previous_ms']:.4f} ms")
+        r["pct_bound"] = 100 * b_ms / r["ms"]
+        if r["ms_cold"] is not None:
+            r["pct_bound_cold"] = 100 * b_ms / r["ms_cold"]
+        for key in keys:
+            if r[key] is not None:
+                tot[key] += r[key]
+        res["ql_shapes"].append(r)
+        ops_ql.append((a, m))
+        log(f"  int8_matmul {mm}x{kk}x{nn} ({p.route}: strips of "
+            f"{I8.BOX}, {p.slices} K slices, {p.blocks} blocks, "
+            f"{I8.STAGES} stages): kernel {r['ms']:.4f} ms "
+            f"({r['pct_bound']:.0f}% of bound {b_ms:.4f} ms, {b_by}), the "
+            f"tile route {r['previous_ms']} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch._int_mm {r['library_ms']} ms; cold: kernel "
+            f"{r['ms_cold']} ms ({r.get('pct_bound_cold', 0):.0f}% of bound), "
+            f"the tile route {r['previous_ms_cold']} ms, plain "
+            f"{r['plain_ms_cold']} ms, torch._int_mm {r['library_ms_cold']} "
+            f"ms")
+    res.update(tot)
+    res["bound_by"] = bound(QL_SHAPES)[1]
+    res["pct_bound"] = 100 * tot["bound_ms"] / tot["ms"]
+    res["pct_bound_cold"] = (100 * tot["bound_ms"] / tot["ms_cold"]
+                             if cuda else 0.0)
+    log(f"  int8_matmul over the {len(QL_SHAPES)} shapes: kernel "
+        f"{tot['ms']:.4f} ms, the tile route {tot['previous_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms ({res['pct_bound']:.0f}%), plain "
+        f"{tot['plain_ms']:.4f} ms, torch._int_mm {tot['library_ms']:.4f} ms;"
+        f" cold: kernel {tot['ms_cold']:.4f} ms ({res['pct_bound_cold']:.0f}%"
+        f"), the tile route {tot['previous_ms_cold']:.4f} ms, plain "
+        f"{tot['plain_ms_cold']:.4f} ms, torch._int_mm "
+        f"{tot['library_ms_cold']:.4f} ms")
+
+    # edge cases through the stream route
+    for mm, kk, nn in I8_EDGES + list(I8_CLUSTER_EDGES):
+        p, _ = exact(rnd(mm, kk), rnd(kk, nn), "edge")
+        split = I8_CLUSTER_EDGES.get((mm, kk, nn), (p.k_per_slice, p.slices))
+        if p.route != "stream" or (p.k_per_slice, p.slices) != split:
+            raise AssertionError(f"edge {mm}x{kk}x{nn}: plan {plan_row(p)}")
+    # the int32 wrap-around through ops.int8_matmul on the stream route:
+    # N = 16 (K in 8 slices) and N = 64 per SM (more blocks than SMs); and
+    # on the tile route (the bit-serial source's tiles, which larger M
+    # takes): N = 3 (split K) and N = 64 per SM (one K slice)
+    k = (1 << 17) + 1
+    xw = torch.full((2, k), -128, dtype=torch.int8, device=dev)
+    wrapped = (k * 16384 + 2**31) % 2**32 - 2**31
+    wrap_cases = [(16, I8.SLICES), (64 * sms, None)] if cuda else [(16, 8)]
+    for n, slices in wrap_cases:
+        p = I8.plan(2, n, k, sms)
+        if p.route != "stream" or p.slices < 2 \
+                or (slices is not None and p.slices != slices):
+            raise AssertionError(f"wrap-around N {n}: plan {plan_row(p)}")
+        ww = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+        _, got = exact(xw, ww, "wrap-around")
+        if not bool((got == wrapped).all()):
+            raise AssertionError(f"int8_matmul wrap-around N {n}: "
+                                 f"{got.unique().tolist()}")
+        del ww
+    for n, one_slice in ((3, False), (64 * sms, True)) if cuda else ():
+        if (bsm.choose_blocks(2, n, k, sms)[2] >= k) != one_slice:
+            raise AssertionError(f"wrap-around N {n}: the tiles' K split "
+                                 f"is not as planned")
+        ww = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+        got = bsm.int8_matmul_cuda(xw, ww)
+        if not bool((got == wrapped).all()) \
+                or not torch.equal(got, cim_mvm(xw, ww)):
+            raise AssertionError(f"the tile route wrap-around N {n}: "
+                                 f"{got.unique().tolist()}")
+        del ww
+    if cuda:
+        # the four shapes' calls in one CUDA graph: replays equal eager
+        # calls, also after an eager call of another shape between them
+        other = (rnd(16, 3000), rnd(3000, 1008))
+        eager = [int8_matmul(a, m) for a, m in ops_ql]
+        outs = []
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for a, m in ops_ql:
+                int8_matmul(a, m)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            outs = [int8_matmul(a, m) for a, m in ops_ql]
+        for rep in range(3):
+            for o in outs:
+                o.fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, e) for o, e in zip(outs, eager)):
+                raise AssertionError(f"int8_matmul graph replay {rep} "
+                                     f"differs from eager calls")
+            exact(*other, "between replays")
+        del graph
+        fx, fw = rnd(1, 64), rnd(64, 16)
+        res["floor_ms"] = dev_ms(lambda: int8_matmul(fx, fw), dev)
+        res["floor_empty_ms"] = dev_ms(lambda: fx.add_(0), dev)
+        log(f"  int8_matmul: {len(I8_EDGES) + len(I8_CLUSTER_EDGES)} edge "
+            f"cases (one-stage slices and a 16-block cluster among them) and "
+            f"the wrap-around "
+            f"exact on the stream route; CUDA-graph replay (x3) of the "
+            f"{len(ops_ql)} shapes == eager calls; floor of a graph-replayed "
+            f"stream launch (1x64x16) {res['floor_ms']:.4f} ms (an int8 add_ "
+            f"of 64 bytes {res['floor_empty_ms']:.4f} ms)")
+    res.update(compared=len(QL_SHAPES) + len(I8_EDGES)
+               + len(I8_CLUSTER_EDGES) + len(wrap_cases),
+               max_abs_err=0)
+    return res
 
 
 def ql_drive(device, seed: int = 0) -> dict:
@@ -1888,9 +2091,11 @@ def ql_drive(device, seed: int = 0) -> dict:
     phi4-mini's decode projections: forward on both routes (equal to
     each other and to ``quantized_linear_ref``, tolerance 0), then the
     straight-through backward of the default route.  Returns the
-    launches of ``int8_matmul`` and of the bit-serial kernel."""
+    launches of ``int8_matmul`` by route and of the bit-serial kernel;
+    on CUDA all of ``int8_matmul``'s must take the stream route."""
     import torch
     from repro_torch.kernels import bitserial_mvm as bsm
+    from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels.ops import quantized_linear
     from repro_torch.kernels.ref import quantized_linear_ref
 
@@ -1899,6 +2104,8 @@ def ql_drive(device, seed: int = 0) -> dict:
     ops = [(torch.randn((mm, kk), generator=gen, device=dev),
             torch.randint(-128, 128, (kk, nn), generator=gen, device=dev,
                           dtype=torch.int8)) for mm, kk, nn in QL_SHAPES]
+    for route in I8.launches_by_route:
+        I8.launches_by_route[route] = 0
     bsm.int8_matmul_cuda.launches = 0
     bsm.bitserial_mvm.launches = 0
     t0 = time.perf_counter()
@@ -1917,10 +2124,14 @@ def ql_drive(device, seed: int = 0) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    res = {"int8_matmul_launches": bsm.int8_matmul_cuda.launches,
+    res = {"int8_matmul_launches": I8.launches_by_route["stream"],
+           "int8_matmul_routes": dict(I8.launches_by_route),
+           "tile_launches": bsm.int8_matmul_cuda.launches,
            "bitserial_launches": bsm.bitserial_mvm.launches, "wall_s": wall}
     if dev.type == "cuda" and (
             res["int8_matmul_launches"] != len(QL_SHAPES)
+            or res["int8_matmul_routes"]["tile"] != 0
+            or res["tile_launches"] != 0
             or res["bitserial_launches"] != len(QL_SHAPES)):
         raise AssertionError(f"quantized_linear drive launches {res}")
     return res
@@ -2148,8 +2359,10 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import nvcc
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = [pool.submit(bsm.build_library), pool.submit(DA.build_library)]
+    from repro_torch.kernels import int8_matmul as I8
+    with ThreadPoolExecutor(3) as pool:
+        built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
+                 pool.submit(I8.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev)
         libs = [f.result() for f in built]
     report["build_s"] = time.perf_counter() - t0
@@ -2455,7 +2668,8 @@ def main() -> int:
                     "quantized_linear": ql,
                     "wall_s": time.perf_counter() - t0}
     log(f"LM phase done in {report['lm']['wall_s']:.1f} s; quantized_linear "
-        f"launched int8_matmul {ql['int8_matmul_launches']} and the "
+        f"launched int8_matmul {ql['int8_matmul_launches']} times on the "
+        f"stream route (routes {ql['int8_matmul_routes']}) and the "
         f"bit-serial kernel {ql['bitserial_launches']} times [{card}]")
 
     def main_row(rows, **key):
@@ -2469,6 +2683,7 @@ def main() -> int:
                     kv="bf16", pos=63)
     ssd = main_row(lmk["ssd"], B=4)
     i8 = lmk["int8_matmul"]
+    i8_55 = lmk["int8_matmul_55"]
     kernels = [{
         "name": "bitserial_mvm",
         "route": "cuda",
@@ -2484,15 +2699,27 @@ def main() -> int:
     }, {
         "name": "int8_matmul",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bitserial_mvm.cu",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/ops.py:80",
         "launches": ql["int8_matmul_launches"],
         "max_abs_err": i8["max_abs_err"],
-        "ms": i8["ms"],
-        "plain_ms": i8["plain_ms"],
+        # the times held against the HBM bound: cold, w read from HBM as a
+        # decode step reads it, summed over QL_SHAPES
+        "ms": i8["ms_cold"],
+        "plain_ms": i8["plain_ms_cold"],
         "bound_ms": i8["bound_ms"],
         "bound_by": i8["bound_by"],
-        "library_ms": i8["library_ms"],
+        "library_ms": i8["library_ms_cold"],
+        "previous_ms": i8["previous_ms_cold"],
+        # graph replay of the same operands: w resident in the 50 MB L2,
+        # no share of the HBM bound
+        "ms_l2_resident": i8["ms"],
+        "previous_ms_l2_resident": i8["previous_ms"],
+        # the entry's PR 16-17 definition: ops.int8_matmul summed over the
+        # 55 MVMs of phase 3 (hot), beside the tile route and its bound
+        "ms_55": i8_55["ms"],
+        "previous_ms_55": i8_55["previous_ms"],
+        "bound_ms_55": i8_55["bound_ms"],
     }, {
         "name": "gqa_decode_attention",
         "route": "cuda",

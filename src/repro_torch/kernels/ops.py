@@ -7,7 +7,9 @@
   runs the plain version.
 * :func:`int8_matmul` — the direct single-pass INT8 GEMM (the
   *performance* path; bit-identical to :func:`cim_mvm`): CUDA launches
-  the same kernel's one-pass instantiation, CPU runs ``mvm_ref``.
+  the kernel :func:`repro_torch.kernels.int8_matmul.plan` routes the
+  shape to (the decode-shape stream kernel or the bit-serial source's
+  one-pass tiles), CPU runs ``mvm_ref``.
 * :func:`quantized_linear` — float-in/float-out linear with INT8 CIM
   arithmetic inside and a straight-through-estimator backward
   (:func:`_ql_bwd`), used for quantization-aware training / INT8
@@ -22,8 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .bitserial_mvm import (bitserial_mvm, bitserial_mvm_cuda,
-                            int8_matmul_cuda, resolve_blocks)
+from .bitserial_mvm import bitserial_mvm, bitserial_mvm_cuda, resolve_blocks
+from .int8_matmul import int8_matmul_cuda
 from .ref import mvm_ref
 
 __all__ = ["cim_mvm", "int8_matmul", "quantized_linear", "pad_to"]
@@ -69,7 +71,8 @@ def cim_mvm(x: torch.Tensor, w: torch.Tensor, *, act_bits: int = 8,
 def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Direct INT8 GEMM (performance path, bit-identical to
     :func:`cim_mvm`): ``(M,K) @ (K,N) -> (M,N)`` int32, operands cast to
-    int8.  CUDA: the hand-written kernel (``int8_matmul_cuda``); CPU: the
+    int8.  CUDA: the hand-written kernel of the shape's route
+    (:func:`repro_torch.kernels.int8_matmul.int8_matmul_cuda`); CPU: the
     plain version ``mvm_ref``."""
     if x.dtype != torch.int8:
         x = x.to(torch.int8)
@@ -77,7 +80,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         w = w.to(torch.int8)
     if x.device.type == "cpu":
         return mvm_ref(x, w)
-    return int8_matmul_cuda(x.contiguous(), w.contiguous())
+    return int8_matmul_cuda(x, w)
 
 
 # ---------------------------------------------------------------------------
