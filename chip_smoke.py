@@ -10,7 +10,8 @@ script exits non-zero):
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, each in its own thread, all started together) while Triton
    compiles the SSD step's variants phase 10 launches
-   (:func:`build_triton_kernels`), timed as set-up;
+   (:func:`build_triton_kernels`) and the training kernels' first
+   variants (:func:`build_train_kernels`), timed as set-up;
 2. hold the kernel (``cim_mvm`` on CUDA tensors) against its plain
    PyTorch version ``bitserial_mvm_ref``, bit-exact (tolerance 0): the
    CPU tests' shapes (K not a multiple of 16 among them) under
@@ -150,16 +151,52 @@ script exits non-zero):
    ``int8_matmul``'s launches counted by route (all 4 on the stream
    route) and the bit-serial kernel's.
 
+11. LM training (``python -m repro_torch.launch.train``) and its
+   kernels: (a) each against its plain version on the card —
+   ``cross_entropy`` (Triton, a forward and a backward launch) at
+   phi4-mini's and mamba2-780m's vocabularies (200,064 and 50,280) for
+   ``XENT_ROWS`` = 4 x 2047 rows of bf16 logits: the loss per row within
+   ``XENT_LOSS_RTOL``, dlogits within one bf16 ulp, the autograd path
+   (gradient written over the logits) equal to the direct launches, a
+   planted wrong label refused; ``adamw_step`` (Triton: the norm in one
+   launch, the update one launch a leaf) over phi4-mini's parameter tree
+   at 8 layers with fp32 and bf16 moments: the norm within
+   ``ADAMW_NORM_RTOL``, the update bit-exact to the plain version given
+   the kernel's scale, planted faults refused; each timed (the kernel by
+   CUDA-graph replay, the plain version and the library call, by CUDA
+   events) beside its bytes bound and ``F.cross_entropy`` (fp32 logits)
+   or ``clip_grad_norm_(foreach=True)`` + fused ``torch.optim.AdamW``;
+   (b) phi4-mini-3.8b and mamba2-780m at published widths and
+   vocabularies, cut to 2 layers (batch 2, seq 64): one
+   ``steps.make_train_step`` step with the kernels on the card and one
+   with the plain versions on the CPU from the same parameters, loss and
+   gradient norm within ``TRAIN_TOL``, every updated parameter within one
+   AdamW step's reach and at most ``TRAIN_FLIP_MAX`` of them over half an
+   lr apart; (c) ``repro_torch.launch.train.main`` on mamba2-780m at full
+   width and depth and phi4-mini-3.8b at full width cut to 8 layers
+   (``depth_variant``) through ``steps.make_train_step`` in the same
+   loop: 20 steps at batch 4, seq 2048, the loss finite at every step and
+   lower at the last than at the first, the kernels' launches counted
+   (2 cross-entropy launches, 1 norm launch and one update launch a leaf
+   a step), median ms/step, tokens/s, peak device memory and the
+   device-busy share of 8 more steps (one ``torch.profiler`` trace);
+   (d) ``train.main --reduced`` saving at steps 3 and 6, step 6 removed
+   and resumed: the new step 6 within ``RESUME_TOL`` of the first, the
+   stream state equal.
+
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
-10d's, the decode kernels' 10c's.  Each record's times are device times
+10d's, the decode kernels' 10c's, the training kernels' 11c's.  Each record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
 cold from HBM, as a decode step reads it (``previous_ms``: the tile
 route; ``ms_l2_resident``: the same operands replayed, the weight in
 L2; ``ms_55``: over the 55 MVMs of phase 3, the entry's definition
 before the stream kernel); the decode attention at 10c's shape (B 4,
-64 slots, bf16, the last position); the SSD step at B 4.  The
+64 slots, bf16, the last position); the SSD step at B 4; the
+cross-entropy's forward and backward at phi4-mini's 11c shape; the
+AdamW step (norm and every leaf's update) over phi4-mini's tree at 8
+layers with fp32 moments.  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -308,6 +345,51 @@ LM_SERVE_RUNS = [
     ("phi4-mini-3.8b, INT8 KV", ["--arch", "phi4-mini-3.8b",
                                  "--temperature", "0"], True),
     ("mamba2-780m (default arch)", [], False)]
+# phase 11: LM training (python -m repro_torch.launch.train) and its kernels
+# 11a cross_entropy: (arch, vocabulary) at 11c's rows, B 4 x (S - 1);
+# the loss per row within XENT_LOSS_RTOL (relative) of the plain version,
+# dlogits within one bf16 ulp of it (the kernel rounds the fp32 gradient
+# once, as the plain version's cast does; exp and the two sums round
+# apart in the last fp32 bits)
+XENT_VOCABS = (("phi4-mini-3.8b", 200064), ("mamba2-780m", 50280))
+XENT_ROWS = 4 * 2047
+XENT_LOSS_RTOL = 1e-5
+XENT_BYTES = 6                # a bf16 logit read forward, read and written back
+# 11a adamw_step: phi4-mini's parameter tree at 8 layers, the update given
+# the kernel's scale bit-exact to the plain version, the norm within
+# ADAMW_NORM_RTOL (fp64 atomics against fp32 sums, another order)
+ADAMW_ARCH, ADAMW_LAYERS = "phi4-mini-3.8b", 8
+ADAMW_NORM_RTOL = 1e-6
+ADAMW_LR, ADAMW_STEP = 3e-4, 4
+# bytes a parameter: read p, g, m, v, write p, m, v, and the norm's read
+# of g (fp32 moments: 32; bf16 moments: 24)
+ADAMW_BYTES = {"float32": 32, "bfloat16": 24}
+ADAMW_OPS = 16                # fp32 operations a parameter
+# 11b: full widths and vocabularies cut to 2 layers, one train step on
+# the card (kernels) and on the CPU (plain versions) from the same
+# parameters; bf16 compute: loss and gradient norm within TRAIN_TOL
+# (relative); each updated parameter within 2 lr (1 + wd |p|) of the CPU's
+# (one AdamW step from equal parameters moves each by at most
+# lr (1 + wd |p|)), and at most TRAIN_FLIP_MAX of the elements more than
+# lr / 2 apart (updates of opposite sign: gradients near zero, where bf16
+# rounding decides the sign)
+TRAIN_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m")
+TRAIN_MODEL_LAYERS, TRAIN_MODEL_BATCH, TRAIN_MODEL_SEQ = 2, 2, 64
+TRAIN_LR = 1e-3
+TRAIN_TOL = 0.02
+TRAIN_FLIP_MAX = 0.05
+# 11c: mamba2-780m at full depth through launch.train.main, phi4-mini at
+# 8 layers through steps.make_train_step in train.main's loop
+TRAIN_FULL = [("mamba2-780m", None), ("phi4-mini-3.8b", 8)]
+TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 20, 4, 2048
+TRAIN_TRACE_STEPS = 8
+# 11d: train.main --reduced (olmoe-1b-7b), saving at 3 and 6, step_6
+# removed and resumed; every leaf of the new step_6 within RESUME_TOL
+# (rtol, atol) of the first (the norm's fp64 atomics land in another order
+# from run to run, and clipping carries its last bits into every update)
+RESUME_ARGS = ["--reduced", "--steps", "6", "--ckpt-every", "3",
+               "--log-every", "1"]
+RESUME_TOL = (1e-5, 1e-8)
 
 
 def log(*a):
@@ -381,16 +463,19 @@ def graph_seq_ms(fns) -> float:
     return start.elapsed_time(end) / (3 * len(fns))
 
 
-def device_profile(fn, top: int = 5):
+def device_profile(fn, top: int = 5, cpu: bool = True):
     """One ``torch.profiler`` traced run of ``fn``: its host wall ms,
     the device's busy ms (sum of the device events' own time) and the
-    ``top`` device events by time as ``(ms, count, name)``."""
+    ``top`` device events by time as ``(ms, count, name)``.  ``cpu=False``
+    records the device's activity alone (a training step launches tens
+    of thousands of kernels, whose host-side events the trace need not
+    hold)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1537,6 +1622,32 @@ def build_triton_kernels(device) -> float:
     return time.perf_counter() - t0
 
 
+def build_train_kernels(device) -> float:
+    """Compile the training kernels' Triton variants phase 11 launches
+    first (the cross-entropy at both vocabularies in bf16, the norm and
+    the update with fp32 and bf16 moments) by launches on small inputs:
+    the seconds taken."""
+    import torch
+    from repro_torch.kernels import adamw as K
+    from repro_torch.kernels import cross_entropy as X
+    t0 = time.perf_counter()
+    for _, v in XENT_VOCABS:
+        logits = torch.zeros((2, v), dtype=torch.bfloat16, device=device)
+        labels = torch.zeros(2, dtype=torch.int32, device=device)
+        _, lse = X.cross_entropy_fwd_cuda(logits, labels)
+        X.cross_entropy_bwd_cuda(logits, labels, lse,
+                                 torch.ones((), device=device), out=logits)
+    p = torch.zeros(4096, device=device)
+    for dt in (torch.float32, torch.bfloat16):
+        m = torch.zeros(4096, dtype=dt, device=device)
+        K.adamw_step([p], [p.clone()], [m], [m.clone()], 1e-3,
+                     torch.zeros((), dtype=torch.int32, device=device),
+                     b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                     clip_norm=1.0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def dev_ms(fn, device) -> float:
     """Device ms of ``fn()`` on CUDA (:func:`graph_ms`); on the CPU (a
     rehearsal only) the host's mean ms over ``REPS`` runs."""
@@ -2317,6 +2428,545 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
     return {"runs": out}
 
 
+def bf16_ulps(got, want) -> int:
+    """The largest distance, in bf16 ulps, between two bf16 tensors
+    (values mapped onto a monotone integer line)."""
+    import torch
+
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i + 32768), i)
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} {tuple(want.shape)}")
+    return int((line(got) - line(want)).abs().max()) if got.numel() else 0
+
+
+def xent_check(logits, labels, fault: bool = False) -> tuple:
+    """Kernel against plain version for one logits matrix: ``(loss |err|,
+    dlogits ulps, ok)``; the kernel's forward and backward launched
+    directly, then through ``cross_entropy`` (the autograd Function,
+    gradient written over a copy of the logits), which must give the
+    same bits.  ``fault`` plants a wrong label in row 0 of the plain
+    version's input: the check must fail."""
+    import torch
+    from repro_torch.kernels import cross_entropy as X
+    loss_k, lse = X.cross_entropy_fwd_cuda(logits, labels)
+    grad_k = X.cross_entropy_bwd_cuda(logits, labels, lse,
+                                      torch.ones((), device=logits.device),
+                                      out=torch.empty_like(logits))
+    plain_labels = labels.clone()
+    if fault:
+        plain_labels[0] = (plain_labels[0] + 1) % logits.shape[1]
+    loss_p = X.cross_entropy_rows_ref(logits, plain_labels)
+    lg = logits.clone().requires_grad_(True)
+    (grad_p,) = torch.autograd.grad(X.cross_entropy_ref(lg, plain_labels),
+                                    lg)
+    err = (loss_k - loss_p).abs()
+    ok_loss = bool((err <= XENT_LOSS_RTOL * loss_p.abs()).all())
+    ulps = bf16_ulps(grad_k, grad_p) if logits.dtype == torch.bfloat16 \
+        else None
+    ok_grad = ulps is not None and ulps <= 1
+    # the autograd path: same launches, the gradient in place
+    la = logits.clone().requires_grad_(True)
+    mean = X.cross_entropy(la, labels)
+    (ga,) = torch.autograd.grad(mean, la)
+    torch.cuda.synchronize()
+    if not (torch.equal(mean, loss_k.mean()) and torch.equal(ga, grad_k)
+            and ga.data_ptr() == la.data_ptr()):
+        raise AssertionError("cross_entropy's autograd path differs from "
+                             "its kernels' direct launches")
+    return float(err.max()), ulps, ok_loss and ok_grad
+
+
+def xent_kernel_rows(device, seed: int = 0) -> list:
+    """Phase 11a, cross-entropy: at each vocabulary, kernel against plain
+    version (and a planted fault that must fail), then device times:
+    the kernel's forward + backward by graph replay (the backward in
+    place over a scratch copy), the plain version's and
+    ``F.cross_entropy``'s on the fp32 logits (forward + backward under
+    autograd, CUDA events over eager runs), beside the bound of
+    ``XENT_BYTES`` a logit."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cross_entropy as X
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows = XENT_ROWS
+    out = []
+    for arch, v in XENT_VOCABS:
+        logits = (torch.randn((rows, v), generator=gen, device=dev) * 3.0
+                  ).to(torch.bfloat16)
+        labels = torch.randint(0, v, (rows,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        err, ulps, ok = xent_check(logits, labels)
+        if not ok:
+            raise AssertionError(f"cross_entropy {arch} V {v}: loss |err| "
+                                 f"{err}, dlogits {ulps} bf16 ulps")
+        _, f_ulps, f_ok = xent_check(logits, labels, fault=True)
+        if f_ok:
+            raise AssertionError(f"cross_entropy {arch}: the planted fault "
+                                 "passed the check")
+        scratch = logits.clone()
+        one = torch.ones((), device=dev)
+
+        def kernel():
+            _, lse = X.cross_entropy_fwd_cuda(scratch, labels)
+            X.cross_entropy_bwd_cuda(scratch, labels, lse, one, out=scratch)
+
+        def plain():
+            lg = logits.detach().requires_grad_(True)
+            torch.autograd.grad(X.cross_entropy_ref(lg, labels), lg)
+
+        l32 = logits.float().requires_grad_(True)
+        lab64 = labels.long()
+
+        def library():
+            torch.autograd.grad(F.cross_entropy(l32, lab64), l32)
+
+        n_bytes = XENT_BYTES * rows * v + 4 * rows
+        t_b = n_bytes / PEAK_BYTES
+        t_o = 6.0 * rows * v / PEAK_F32_OPS
+        row = {"arch": arch, "vocab": v, "rows": rows, "max_abs_err": err,
+               "dlogits_ulps": ulps, "fault_ulps": f_ulps,
+               "ms": graph_ms(kernel, REPS),
+               "plain_ms": cuda_ms(plain, 3),
+               "library_ms": cuda_ms(library, 3),
+               "bound_ms": 1e3 * max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations"}
+        del scratch, l32
+        out.append(row)
+        log(f"  cross_entropy {arch} ({rows} x {v} bf16): loss |err| "
+            f"{err:.2e}, dlogits within {ulps} bf16 ulp (planted fault: "
+            f"{f_ulps} ulps, refused); fwd + bwd kernel {row['ms']:.4f} ms,"
+            f" plain {row['plain_ms']:.4f} ms, F.cross_entropy (fp32) "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.0f}%)")
+    return out
+
+
+def adamw_tree(device, seed: int = 0):
+    """phi4-mini's parameter tree at ``ADAMW_LAYERS`` layers (fp32 masters) and
+    random gradients, on ``device``: ``(cfg, params, grads)`` (leaf
+    lists)."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import depth_variant
+    from repro_torch.models import transformer as T
+    dev = torch.device(device)
+    cfg = depth_variant(ARCHS[ADAMW_ARCH], ADAMW_LAYERS)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = tree_util.leaves(T.init_params(cfg, gen, dev))
+    # gradients of std 1e-4: a norm near 3.8 at 1.42e9 parameters, so the
+    # clip scale (clip 1.0) is below 1 and enters every update
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 1e-4
+             for p in params]
+    return cfg, params, grads
+
+
+def adamw_kernel_rows(device, seed: int = 0) -> list:
+    """Phase 11a, AdamW: over phi4-mini's tree with fp32 and with bf16
+    moments: the norm kernel within ``ADAMW_NORM_RTOL`` of the plain norm;
+    each leaf's update kernel, given the scalars from the kernel's norm,
+    bit-exact to the plain version (p, m and v), leaf by leaf; planted
+    faults (the plain norm of one leaf scaled by 1 + 1e-4; the plain
+    update at an lr one ulp off) fail.  Device times of the whole step
+    (norm + one launch a leaf; graph replay, in place), of the plain
+    version and of ``clip_grad_norm_(foreach=True)`` +
+    ``torch.optim.AdamW(fused=True).step()`` (CUDA events, eager), beside
+    the bound of ``ADAMW_BYTES`` a parameter."""
+    import torch
+    from repro_torch.kernels import adamw as K
+    from repro_torch.optim import AdamWConfig
+    dev = torch.device(device)
+    cfg, params, grads = adamw_tree(dev, seed)
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    lr = torch.full((), ADAMW_LR, device=dev)
+    step = torch.full((), ADAMW_STEP, dtype=torch.int32, device=dev)
+    out = []
+    for mdt in ("float32", "bfloat16"):
+        hp = AdamWConfig(moment_dtype=mdt)
+        dt = getattr(torch, mdt)
+        ms = [(torch.randn(p.shape, generator=gen, device=dev) * 1e-4
+               ).to(dt) for p in params]
+        vs = [(torch.rand(p.shape, generator=gen, device=dev) * 1e-8
+               ).to(dt) for p in params]
+        hyper = dict(b1=hp.b1, b2=hp.b2, eps=hp.eps,
+                     weight_decay=hp.weight_decay)
+        gnorm = K.grad_norm(grads)
+        want_norm = float(K.grad_norm_ref(grads))
+        norm_abs = abs(float(gnorm) - want_norm)
+        norm_err = norm_abs / want_norm
+        big = max(range(len(grads)), key=lambda i: grads[i].numel())
+        faulty = K.grad_norm_ref(grads[:big] + [grads[big] * (1 + 1e-4)]
+                                 + grads[big + 1:])
+        fault_err = abs(float(gnorm) - float(faulty)) / float(faulty)
+        if norm_err > ADAMW_NORM_RTOL or fault_err <= ADAMW_NORM_RTOL:
+            raise AssertionError(f"grad_norm: relative error {norm_err} "
+                                 f"(planted fault {fault_err})")
+        scalars = K.adamw_scalars(gnorm, lr, step + 1, b1=hp.b1, b2=hp.b2,
+                                  clip_norm=hp.clip_norm)
+        off = scalars.clone()
+        off[1] = torch.nextafter(off[1], torch.full((), 1.0, device=dev))
+        unequal = 0
+        fault_caught = False
+        for p, g, m, v in zip(params, grads, ms, vs):
+            pk, mk, vk = p.detach().clone(), m.clone(), v.clone()
+            K._adamw_leaf_cuda(pk, g, mk, vk, scalars, **hyper)
+            want = K.adamw_leaf_ref(p.detach(), g, m, v, scalars, **hyper)
+            unequal += sum(int((a != b).sum())
+                           for a, b in zip((pk, mk, vk), want))
+            if not fault_caught:
+                bad = K.adamw_leaf_ref(p.detach(), g, m, v, off, **hyper)
+                fault_caught = not torch.equal(bad[0], pk)
+        if unequal or not fault_caught:
+            raise AssertionError(f"adamw_step ({mdt} moments): {unequal} "
+                                 f"elements differ from the plain version "
+                                 f"(planted fault caught: {fault_caught})")
+        pl = [p.detach() for p in params]
+
+        def kernel():
+            K.adamw_step(pl, grads, ms, vs, lr, step, clip_norm=hp.clip_norm,
+                         **hyper)
+
+        def plain():
+            gn = K.grad_norm_ref(grads)
+            sc = K.adamw_scalars(gn, lr, step + 1, b1=hp.b1, b2=hp.b2,
+                                 clip_norm=hp.clip_norm)
+            for p, g, m, v in zip(pl, grads, ms, vs):
+                np_, nm, nv = K.adamw_leaf_ref(p, g, m, v, sc, **hyper)
+                p.copy_(np_)
+                m.copy_(nm)
+                v.copy_(nv)
+
+        t_b = ADAMW_BYTES[mdt] * n / PEAK_BYTES
+        t_o = ADAMW_OPS * n / PEAK_F32_OPS
+        row = {"moments": mdt, "params": n, "leaves": len(params),
+               "max_abs_err": norm_abs,
+               "norm_rel_err": norm_err, "fault_rel_err": fault_err,
+               "ms": graph_ms(kernel, 3), "plain_ms": cuda_ms(plain, 2),
+               "bound_ms": 1e3 * max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations",
+               "library_ms": None}
+        del ms, vs
+        if mdt == "float32":
+            lib = [p.detach().clone().requires_grad_(True) for p in params]
+            for p, g in zip(lib, grads):
+                p.grad = g.clone()
+            opt = torch.optim.AdamW(lib, lr=ADAMW_LR, betas=(hp.b1, hp.b2),
+                                    eps=hp.eps, weight_decay=hp.weight_decay,
+                                    fused=True)
+
+            def library():
+                torch.nn.utils.clip_grad_norm_(lib, hp.clip_norm,
+                                               foreach=True)
+                opt.step()
+
+            row["library_ms"] = cuda_ms(library, 2)
+            del lib, opt
+        out.append(row)
+        lib_txt = ("" if row["library_ms"] is None else
+                   f", clip_grad_norm_ + fused AdamW "
+                   f"{row['library_ms']:.3f} ms")
+        log(f"  adamw_step ({mdt} moments, {n} parameters in {len(params)} "
+            f"leaves): norm rel err {norm_err:.1e} (planted fault "
+            f"{fault_err:.1e}, refused), update bit-exact given the scale "
+            f"(planted lr ulp refused); step {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms{lib_txt}, bound {row['bound_ms']:.3f}"
+            f" ms ({row['bound_by']}, "
+            f"{100 * row['bound_ms'] / row['ms']:.0f}%)")
+    return out
+
+
+def train_kernels_phase(device, seed: int = 0) -> dict:
+    """Phase 11a: the two training kernels against their plain versions
+    at the shapes 11c gives them; launches made here compare and are not
+    counted."""
+    t0 = time.perf_counter()
+    xent = xent_kernel_rows(device, seed)
+    adamw = adamw_kernel_rows(device, seed)
+    return {"cross_entropy": xent, "adamw_step": adamw,
+            "wall_s": time.perf_counter() - t0}
+
+
+def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
+                      batch: int = TRAIN_MODEL_BATCH,
+                      seq: int = TRAIN_MODEL_SEQ, seed: int = 0) -> dict:
+    """Phase 11b: ``name`` at published widths and vocabulary, cut to
+    ``layers`` layers: one train step (``steps.make_train_step``) on
+    ``device`` (the kernels) and one on the CPU (the plain versions) from
+    the same parameters and batch.  Loss and gradient norm within
+    ``TRAIN_TOL``; every updated parameter within one AdamW step's reach
+    of the CPU's, and at most ``TRAIN_FLIP_MAX`` of the elements more than
+    half an lr apart."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    cfg = dataclasses.replace(ARCHS[name], n_layers=layers)
+    hp = AdamWConfig()
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    cpu = params.map(lambda t: t.detach().to("cpu", copy=True))
+    p0 = [p.detach().clone() for p in tree_util.leaves(cpu)]
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, batch, seq, seed=seed, step=0).items()}
+    shape = ShapeConfig("11b", seq, batch["tokens"].shape[0], "train")
+    out = {}
+    for label, tree, d in (("card", params, dev),
+                           ("cpu", cpu, torch.device("cpu"))):
+        fn, _ = lm_steps.make_train_step(cfg, d, shape, hp,
+                                         lr_peak=TRAIN_LR, warmup=1,
+                                         total_steps=10)
+        t0 = time.perf_counter()
+        tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
+        out[label] = (tree_util.leaves(tree),
+                      {k: float(v) for k, v in m.items()},
+                      time.perf_counter() - t0)
+    (pk, mk, t_dev), (pc, mc, t_cpu) = out["card"], out["cpu"]
+    loss_gap = abs(mk["loss"] - mc["loss"]) / abs(mc["loss"])
+    norm_gap = abs(mk["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    lr = mc["lr"]
+    worst, far, total = 0.0, 0, 0
+    for a, b, start in zip(pk, pc, p0):
+        gap = (a.detach().cpu() - b.detach()).abs()
+        reach = 2 * lr * (1 + hp.weight_decay * start.abs()) \
+            + 1e-6 * start.abs()
+        worst = max(worst, float((gap / reach).max()))
+        far += int((gap > lr / 2).sum())
+        total += gap.numel()
+    row = {"arch": name, "layers": layers, "batch": batch["tokens"].shape[0],
+           "seq": seq, "loss_card": mk["loss"], "loss_cpu": mc["loss"],
+           "grad_norm_card": mk["grad_norm"],
+           "grad_norm_cpu": mc["grad_norm"], "lr": lr,
+           "loss_rel_gap": loss_gap, "norm_rel_gap": norm_gap,
+           "update_gap_over_reach": worst, "far_share": far / total,
+           "card_s": t_dev, "cpu_s": t_cpu,
+           "wall_s": time.perf_counter() - t_start}
+    ok = (loss_gap <= TRAIN_TOL and norm_gap <= TRAIN_TOL and worst <= 1.0
+          and far / total <= TRAIN_FLIP_MAX and mk["lr"] == mc["lr"])
+    if not ok:
+        raise AssertionError(f"{name} train step, card against CPU: {row}")
+    return row
+
+
+def train_loop(cfg, device, steps: int, batch: int, seq: int,
+               trace_steps: int = 0, seed: int = 0) -> dict:
+    """``launch.train.main``'s loop (its data stream, pinned batches, lr
+    schedule and AdamW) through ``steps.make_train_step`` for ``steps``
+    steps, the launches of the two training kernels counted over them;
+    then ``trace_steps`` more in one ``torch.profiler`` trace."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.launch import steps as lm_steps, train as lm_train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device(device)
+    total = steps + trace_steps
+    fn, _ = lm_steps.make_train_step(
+        cfg, dev, ShapeConfig("11c", seq, batch, "train"), AdamWConfig(),
+        lr_peak=3e-4, warmup=max(2, steps // 10), total_steps=total)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    opt = adamw_init(params)
+    stream = SyntheticStream(cfg, batch, seq, seed=seed)
+    state = {"params": params, "opt": opt, "step": 0}
+
+    def one():
+        b = lm_train._to_device(next(stream), dev)
+        state["params"], state["opt"], m = fn(state["params"], state["opt"],
+                                              b, state["step"])
+        state["step"] += 1
+        return float(m["loss"])
+
+    KX.cross_entropy.launches = KA.grad_norm.launches = 0
+    KA.adamw_step.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one())
+        times.append(time.perf_counter() - t0)
+    launches = (KX.cross_entropy.launches, KA.grad_norm.launches,
+                KA.adamw_step.launches)
+    row = {"steps": steps, "batch": batch, "seq": seq, "losses": losses,
+           "median_ms": 1e3 * float(np.median(times)),
+           "leaves": len(tree_util.leaves(params)),
+           "xent_launches": launches[0], "norm_launches": launches[1],
+           "update_launches": launches[2]}
+    if trace_steps:
+        t0 = time.perf_counter()
+        wall, busy, top = device_profile(
+            lambda: [one() for _ in range(trace_steps)], cpu=False)
+        row.update(traced_steps=trace_steps, profiled_wall_ms=wall,
+                   device_busy_ms=busy, top_device_events=top,
+                   trace_s=time.perf_counter() - t0)
+    row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stream.close()
+    return row
+
+
+def check_training(label: str, row: dict) -> None:
+    """Finite losses that fall, and the kernels' launches: 2 cross-entropy
+    launches a step (forward, backward; 4 with MTP, which neither
+    configuration has), 1 norm and one update launch a leaf a step."""
+    import math
+    losses, steps = row["losses"], row["steps"]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    want = (2 * steps, steps, steps * row["leaves"])
+    got = (row["xent_launches"], row["norm_launches"],
+           row["update_launches"])
+    if got != want:
+        raise AssertionError(f"{label}: launches (cross_entropy, norm, "
+                             f"update) {got}, expected {want}")
+
+
+def train_full_phase(device, seed: int = 0) -> list:
+    """Phase 11c: mamba2-780m at full width and depth through
+    ``launch.train.main`` (20 steps, its log parsed), then 8 more steady
+    steps of it traced; phi4-mini-3.8b at full width cut to 8 layers
+    through ``steps.make_train_step`` in the same loop, 20 steps and 8
+    traced.  Checks :func:`check_training`; records ms/step, tokens/s,
+    peak device memory and the device-busy share."""
+    import re
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import depth_variant
+    from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.launch import train as lm_train
+
+    dev = torch.device(device)
+    rows = []
+    for name, layers in TRAIN_FULL:
+        cfg = ARCHS[name] if layers is None else depth_variant(ARCHS[name],
+                                                               layers)
+        t0 = time.perf_counter()
+        if layers is None:
+            argv = ["--arch", name, "--steps", str(TRAIN_FULL_STEPS),
+                    "--batch", str(TRAIN_FULL_BATCH), "--seq",
+                    str(TRAIN_FULL_SEQ), "--log-every", "1"]
+            torch.cuda.reset_peak_memory_stats(dev)
+            KX.cross_entropy.launches = KA.grad_norm.launches = 0
+            KA.adamw_step.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = lm_train.main(argv)
+            lines = buf.getvalue().strip().splitlines()
+            if rc != 0 or len(lines) != TRAIN_FULL_STEPS + 1:
+                raise AssertionError(f"launch.train {argv}: exit {rc}, "
+                                     f"{lines}")
+            row = {"steps": TRAIN_FULL_STEPS, "batch": TRAIN_FULL_BATCH,
+                   "seq": TRAIN_FULL_SEQ, "argv": argv, "lines": lines,
+                   "losses": [float(line.split()[3]) for line in lines[:-1]],
+                   "median_ms": float(re.fullmatch(
+                       r"done: \d+ steps, median (\d+) ms/step",
+                       lines[-1]).group(1)),
+                   "xent_launches": KX.cross_entropy.launches,
+                   "norm_launches": KA.grad_norm.launches,
+                   "update_launches": KA.adamw_step.launches,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
+                                TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
+            for k in ("leaves", "traced_steps", "profiled_wall_ms",
+                      "device_busy_ms", "top_device_events", "trace_s"):
+                row[k] = traced[k]
+            for line in (lines[0], lines[-2], lines[-1]):
+                log(f"  {line}")
+        else:
+            row = train_loop(cfg, dev, TRAIN_FULL_STEPS, TRAIN_FULL_BATCH,
+                             TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
+        label = name if layers is None else f"{name} x{layers} layers"
+        check_training(label, row)
+        row.update(arch=name, layers=cfg.n_layers, label=label,
+                   wall_s=time.perf_counter() - t0,
+                   tok_s=row["batch"] * row["seq"] / (row["median_ms"] / 1e3))
+        rows.append(row)
+        busy, wall = row["device_busy_ms"], row["profiled_wall_ms"]
+        log(f"  {label}: {row['steps']} steps at batch {row['batch']}, seq "
+            f"{row['seq']}: loss {row['losses'][0]:.4f} -> "
+            f"{row['losses'][-1]:.4f}, median {row['median_ms']:.0f} ms/step"
+            f" ({row['tok_s']:.0f} tok/s), peak device memory "
+            f"{row['peak_gb']:.2f} GB; launches cross_entropy "
+            f"{row['xent_launches']}, norm {row['norm_launches']}, update "
+            f"{row['update_launches']} ({row['leaves']} leaves); "
+            f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
+            f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
+            f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
+        for ms, count, ev in row["top_device_events"]:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {ev[:90]}")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_resume_phase(device=None, extra=()) -> dict:
+    """Phase 11d: ``launch.train.main`` with ``RESUME_ARGS`` in a fresh
+    directory (checkpoints at 3 and 6); step_6 read back and removed; the
+    same command again resumes at 3 and writes step_6 anew, which must
+    match the first within ``RESUME_TOL`` with the stream state equal."""
+    import shutil
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    dev_arg = [] if device is None else ["--device", str(device)]
+    with tempfile.TemporaryDirectory() as d:
+        argv = RESUME_ARGS + list(extra) + dev_arg + ["--ckpt-dir", d]
+        args = lm_train.parser().parse_args(argv)
+        cfg = reduced(ARCHS[args.arch])
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        template = {"params": params, "opt": adamw_init(params)}
+        texts = []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = lm_train.main(argv)
+            if rc != 0:
+                raise AssertionError(f"launch.train {argv}: exit {rc}")
+            texts.append(buf.getvalue().strip().splitlines())
+            names = sorted(os.listdir(d))
+            if names != ["LATEST", "step_0000000003", "step_0000000006"]:
+                raise AssertionError(f"checkpoints {names}")
+            six = os.path.join(d, "step_0000000006")
+            tree, meta = load_pytree(template, six)
+            if not texts[1:]:
+                first, first_meta = tree, meta
+                shutil.rmtree(six)
+        if texts[1][0] != "[resume] from step 3":
+            raise AssertionError(f"resume: {texts[1]}")
+    worst = 0.0
+    rtol, atol = RESUME_TOL
+    for (k, a), (_, b) in zip(tree_util.flatten_with_paths(first),
+                              tree_util.flatten_with_paths(tree)):
+        gap = (a.double() - b.double()).abs()
+        if not bool((gap <= atol + rtol * a.double().abs()).all()):
+            raise AssertionError(f"resumed step_6 {k}: max gap "
+                                 f"{float(gap.max())}")
+        worst = max(worst, float(gap.max()))
+    if meta != first_meta or meta["stream"] != {"step": 6, "seed": 0}:
+        raise AssertionError(f"stream state {meta} against {first_meta}")
+    return {"arch": args.arch, "argv": argv, "lines": texts,
+            "max_abs_gap": worst, "metadata": meta}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2363,11 +3013,13 @@ def main() -> int:
     with ThreadPoolExecutor(3) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
                  pool.submit(I8.build_library)]
-        report["triton_build_s"] = build_triton_kernels(dev)
+        report["triton_build_s"] = build_triton_kernels(dev) \
+            + build_train_kernels(dev)
         libs = [f.result() for f in built]
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {', '.join(lib.name for lib in libs)} and the Triton SSD "
-        f"step in {report['build_s']:.2f} s (Triton "
+        f"step, cross-entropy and AdamW kernels in {report['build_s']:.2f} s"
+        f" (Triton "
         f"{report['triton_build_s']:.2f} s of it)")
     for name, text in sorted(nvcc.BUILD_LOGS.items()):
         for line in text.splitlines():
@@ -2672,6 +3324,41 @@ def main() -> int:
         f"stream route (routes {ql['int8_matmul_routes']}) and the "
         f"bit-serial kernel {ql['bitserial_launches']} times [{card}]")
 
+    # 11. LM training (python -m repro_torch.launch.train) and its kernels --
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("phase 11a: the training kernels against their plain versions")
+    train_k = train_kernels_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    log("phase 11b: one train step at full width, 2 layers: kernels (card) "
+        "against the plain versions (CPU)")
+    train_models = [train_model_phase(name, dev, seed=args.seed)
+                    for name in TRAIN_MODEL_ARCHS]
+    for r in train_models:
+        log(f"  {r['arch']} x{r['layers']} layers, batch {r['batch']}, seq "
+            f"{r['seq']}: loss card {r['loss_card']:.5f} cpu "
+            f"{r['loss_cpu']:.5f} (rel gap {r['loss_rel_gap']:.1e}), grad "
+            f"norm card {r['grad_norm_card']:.5f} cpu {r['grad_norm_cpu']:.5f}"
+            f" (rel gap {r['norm_rel_gap']:.1e}; tolerance {TRAIN_TOL}); "
+            f"updates: largest gap {r['update_gap_over_reach']:.3f} of one "
+            f"step's reach, {100 * r['far_share']:.3f}% of elements over lr/2"
+            f" apart (at most {100 * TRAIN_FLIP_MAX:.0f}%); card "
+            f"{r['card_s']:.2f} s, cpu {r['cpu_s']:.2f} s")
+    torch.cuda.empty_cache()
+    log(f"phase 11c: training at full width, {TRAIN_FULL_STEPS} steps, batch "
+        f"{TRAIN_FULL_BATCH}, seq {TRAIN_FULL_SEQ}")
+    train_full = train_full_phase(dev, args.seed)
+    log("phase 11d: launch.train checkpoints at 3 and 6, step 6 removed, "
+        "resumed")
+    resumed = train_resume_phase()
+    log(f"  {' / '.join(resumed['lines'][1][:2])}; resumed step_6 within "
+        f"{resumed['max_abs_gap']:.2e} of the first (tolerance {RESUME_TOL}),"
+        f" stream state {resumed['metadata']['stream']} equal")
+    report["train"] = {"kernels": train_k, "models": train_models,
+                       "full": train_full, "resume": resumed,
+                       "wall_s": time.perf_counter() - t0}
+    log(f"training phase done in {report['train']['wall_s']:.1f} s [{card}]")
+
     def main_row(rows, **key):
         for r in rows:
             if all(r[k] == v for k, v in key.items()):
@@ -2745,6 +3432,38 @@ def main() -> int:
         "bound_by": ssd["bound_by"],
         "library_ms": ssd["library_ms"],
     }]
+    xent = main_row(train_k["cross_entropy"], arch="phi4-mini-3.8b")
+    aw = main_row(train_k["adamw_step"], moments="float32")
+    kernels += [{
+        "name": "cross_entropy",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/csrc/cross_entropy.py",
+        "replaces": "src/repro/models/transformer.py:272",
+        "launches": sum(r["xent_launches"] for r in train_full),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in train_k["cross_entropy"]),
+        # forward + backward at phi4-mini's B 4 x 2047 rows, V 200064
+        "ms": xent["ms"],
+        "plain_ms": xent["plain_ms"],
+        "bound_ms": xent["bound_ms"],
+        "bound_by": xent["bound_by"],
+        "library_ms": xent["library_ms"],
+    }, {
+        "name": "adamw_step",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/csrc/adamw_step.py",
+        "replaces": "src/repro/optim/adamw.py:34",
+        "launches": sum(r["norm_launches"] + r["update_launches"]
+                        for r in train_full),
+        "max_abs_err": max(r["max_abs_err"] for r in train_k["adamw_step"]),
+        # one whole step (norm + one update launch a leaf) over phi4-mini's
+        # tree at 8 layers, fp32 moments
+        "ms": aw["ms"],
+        "plain_ms": aw["plain_ms"],
+        "bound_ms": aw["bound_ms"],
+        "bound_by": aw["bound_by"],
+        "library_ms": aw["library_ms"],
+    }]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -2753,7 +3472,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul and gqa_decode_attention "
-        "(cuda, sm_90a), ssd_decode_step (triton)")
+        "(cuda, sm_90a), ssd_decode_step, cross_entropy and adamw_step "
+        "(triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

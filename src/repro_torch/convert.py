@@ -7,7 +7,9 @@
 takes the LM's parameter pytree (:func:`repro.models.transformer.
 init_params`) as numpy arrays and gives back the port's
 :class:`~repro_torch.models.transformer.ParamTree`, its stacked blocks
-unstacked.  Both are duck-typed: nothing of ``repro`` is imported.
+unstacked; :func:`from_jax_opt_state` does the same for the AdamW
+state (:func:`repro.optim.adamw_init`).  All are duck-typed: nothing of
+``repro`` is imported.
 Tensors pass through (moved to ``device``), so the functions are
 idempotent.
 """
@@ -22,7 +24,8 @@ import torch
 from .core.ref import QuantParams
 from .device import resolve_device
 
-__all__ = ["from_reference", "from_jax_params", "to_tensor"]
+__all__ = ["from_reference", "from_jax_params", "from_jax_opt_state",
+           "to_tensor"]
 
 # pytree keys whose leaves carry a leading per-block axis
 _STACKED = ("blocks", "enc_blocks")
@@ -93,3 +96,17 @@ def from_jax_params(cfg: Any, params: Mapping[str, Any],
         else:
             tree[key] = _tree_tensors(val, dev)
     return ParamTree(tree)
+
+
+def from_jax_opt_state(cfg: Any, opt: Mapping[str, Any],
+                       device: Union[str, torch.device, None] = None
+                       ) -> Dict[str, Any]:
+    """The reference's AdamW state (``m`` and ``v`` shaped as its
+    parameters, stacked blocks included, and an int32 ``step``) as the
+    port's: ``m`` and ``v`` as parameter modules (one tree per block,
+    their dtype kept, bf16 included) and ``step`` an int32 0-d tensor, on
+    ``device`` (default: CUDA)."""
+    dev = resolve_device(device)
+    return {"m": from_jax_params(cfg, opt["m"], dev),
+            "v": from_jax_params(cfg, opt["v"], dev),
+            "step": to_tensor(opt["step"], dev).to(torch.int32).reshape(())}

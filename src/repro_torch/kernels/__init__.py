@@ -3,8 +3,9 @@ hand-written CUDA source for Hopper (:mod:`.bitserial_mvm`), the direct
 INT8 GEMM at decode shapes in its own CUDA source and the planner that
 routes between the two (:mod:`.int8_matmul`), the LM decode attention in
 CUDA (:mod:`.decode_attention`; the CUDA sources built by :mod:`.nvcc`
-at first use), the SSD decode step in Triton
-(:mod:`.ssd_decode`, its source loaded by :mod:`.triton_source`;
+at first use), the SSD decode step, the training loss's cross-entropy
+and the AdamW step in Triton (:mod:`.ssd_decode`, :mod:`.cross_entropy`,
+:mod:`.adamw`, their sources loaded by :mod:`.triton_source`;
 sources under ``csrc/``), their plain
 PyTorch versions (:mod:`.ref` and beside each wrapper) and the public
 wrappers (:mod:`.ops`: ``cim_mvm``, ``int8_matmul``,

@@ -73,7 +73,9 @@ def _causal_conv(x, w, b):
     out = torch.zeros_like(x)
     for i in range(k):                      # tiny static unroll (K=4)
         out = out + xp[:, i:i + x.shape[1]] * w[i]
-    return F.silu(out + b)
+    # the bias in the activations' dtype: the reference casts it with the
+    # stacked block parameters (2-D there), so it is in the compute dtype
+    return F.silu(out + b.to(out.dtype))
 
 
 def ssm_apply(cfg: ArchConfig, p: Params, u: torch.Tensor) -> torch.Tensor:

@@ -23,22 +23,36 @@ Mixed precision as in the reference: master parameters in
 ``param_dtype``, matrices cast to ``compute_dtype`` by
 :func:`cast_params`.  The reference casts inside every ``decode_step``;
 here the cast is made once per model (``decode_step`` takes cast
-parameters as they are), which gives the same numbers.
+parameters as they are), which gives the same numbers.  The cast is
+differentiable: :func:`loss_fn` casts under autograd, so the gradients
+reach the fp32 masters (``ParamTree.requires_grad_``).
+
+Training (:func:`loss_fn`) rematerializes each block with one
+``torch.utils.checkpoint`` (non-reentrant), as the reference's
+``jax.checkpoint`` over its scan body; the ``remat_policy`` knob
+``"dots"`` keeps the matrix products' outputs (a selective checkpoint),
+``"nothing"`` keeps nothing.  The next-token cross-entropy runs in
+:func:`repro_torch.kernels.cross_entropy.cross_entropy`: the Triton
+kernel on CUDA, its plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels.cross_entropy import cross_entropy
 from . import layers as L
 from . import ssm as S
 
-__all__ = ["ParamTree", "init_params", "cast_params", "forward",
+__all__ = ["ParamTree", "init_params", "cast_params", "forward", "loss_fn",
            "init_decode_state", "decode_step", "prefill", "cache_len_for"]
 
 Params = Dict[str, Any]
@@ -53,9 +67,14 @@ def _dt(cfg: ArchConfig) -> Tuple[torch.dtype, torch.dtype]:
 
 class ParamTree(nn.Module):
     """A nested mapping of tensors as a module: a mapping becomes a
-    child ``ParamTree``, a list of mappings a ``ModuleList`` of them, a
-    tensor a parameter (no gradient).  ``tree["name"]`` reads a child or
-    a tensor, so the layer functions take these and plain dicts alike.
+    child ``ParamTree``, a list of mappings a ``ModuleList`` of them.  A
+    tensor outside autograd becomes a parameter, created without a
+    gradient (``requires_grad_(True)`` makes the tree trainable); a
+    parameter is kept as it is; a tensor that autograd
+    tracks (one computed from parameters, as :func:`cast_params` makes)
+    is kept as it is too, as a buffer, so that gradients flow through it
+    to the parameters it came from.  ``tree["name"]`` reads a child or a
+    tensor, so the layer functions take these and plain dicts alike.
     ``compute_dtype`` is set on the trees :func:`cast_params` made."""
 
     def __init__(self, tree: Mapping[str, Any]) -> None:
@@ -70,6 +89,10 @@ class ParamTree(nn.Module):
                 self.add_module(k, nn.ModuleList(
                     t if isinstance(t, ParamTree) else ParamTree(t)
                     for t in v))
+            elif isinstance(v, nn.Parameter):
+                self.register_parameter(k, v)
+            elif v.requires_grad:
+                self.register_buffer(k, v, persistent=False)
             else:
                 self.register_parameter(
                     k, nn.Parameter(v, requires_grad=False))
@@ -81,13 +104,16 @@ class ParamTree(nn.Module):
             raise KeyError(key) from None
 
     def __contains__(self, key: str) -> bool:
-        return key in self._modules or key in self._parameters
+        return (key in self._modules or key in self._parameters
+                or key in self._buffers)
 
     def keys(self):
-        return list(self._parameters) + list(self._modules)
+        return (list(self._parameters) + list(self._buffers)
+                + list(self._modules))
 
     def map(self, fn) -> "ParamTree":
-        """A new tree of ``fn(tensor)`` over every leaf (same layout)."""
+        """A new tree of ``fn(tensor)`` over every leaf (same layout);
+        ``fn`` runs under autograd, as called."""
         out = {}
         for k in self.keys():
             v = self[k]
@@ -96,7 +122,7 @@ class ParamTree(nn.Module):
             elif isinstance(v, nn.ModuleList):
                 out[k] = [t.map(fn) for t in v]
             else:
-                out[k] = fn(v.data)
+                out[k] = fn(v)
         return ParamTree(out)
 
 
@@ -104,7 +130,9 @@ def cast_params(cfg: ArchConfig, params: ParamTree) -> ParamTree:
     """Mixed precision: master params stay in ``param_dtype``; matrices
     are cast to ``compute_dtype`` (1-D params — norm scales, SSM A/D/dt —
     stay full precision).  Returns ``params`` itself when it is already a
-    cast tree."""
+    cast tree.  Differentiable: under autograd the cast leaves stay in
+    the graph of the masters (the leaves left as they are *are* the
+    masters)."""
     _, cdtype = _dt(cfg)
     if params.compute_dtype == cdtype:
         return params
@@ -287,6 +315,81 @@ def forward(cfg: ArchConfig, params: ParamTree, batch: Mapping,
     if cfg.vision_tokens:
         x = x[:, cfg.vision_tokens:]
     return x @ _head(cfg, params, x.dtype)
+
+
+_aten = torch.ops.aten
+# the matrix products' ops as autograd dispatches them (matmul and einsum
+# land on these): what jax.checkpoint_policies.dots_saveable keeps
+_DOTS = frozenset((_aten.mm.default, _aten.bmm.default,
+                   _aten.addmm.default, _aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_policy():
+    """The ``context_fn`` of a block's checkpoint under the
+    ``remat_policy`` knob: ``"dots"`` saves the matrix products' outputs,
+    ``"nothing"`` (the default) recomputes the whole block."""
+    from ..launch import tuning
+    if tuning.FLAGS["remat_policy"] == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    return None
+
+
+def _remat_block(cfg: ArchConfig, bp, x, enc):
+    ctx = _remat_policy()
+    kw = {} if ctx is None else {"context_fn": ctx}
+    # a block draws no random numbers: no RNG state to stash
+    return checkpoint(_block_apply, cfg, bp, x, enc, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def loss_fn(cfg: ArchConfig, params: ParamTree, batch: Mapping,
+            remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy (+ MoE aux + MTP when configured), a
+    float32 scalar.  Each block is rematerialized (``remat``, as the
+    reference always does; ``remat=False`` keeps every activation and
+    gives the same numbers).  The parameters are cast under autograd, so
+    ``loss.backward()`` reaches the masters that require grad."""
+    params = cast_params(cfg, params)
+    x, enc = _embed_inputs(cfg, params, batch)
+    auxs = []
+    for bp in params["blocks"]:
+        if remat and torch.is_grad_enabled():
+            x, aux = _remat_block(cfg, bp, x, enc)
+        else:
+            x, aux = _block_apply(cfg, bp, x, enc=enc)
+        auxs.append(aux)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if cfg.vision_tokens:
+        x = x[:, cfg.vision_tokens:]
+    head = _head(cfg, params, x.dtype)
+
+    tokens = batch["tokens"]
+    labels = batch.get("labels", tokens)
+
+    def xent(h, lab):
+        # logits in the compute dtype; the kernel reads them in fp32, as
+        # the reference's (h @ head).astype(float32)
+        logits = h @ head
+        return cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             lab.reshape(-1))
+
+    loss = xent(x[:, :-1], labels[:, 1:])
+    if cfg.mtp:
+        # multi-token prediction: predict t+2 from (h_t, emb_{t+1})
+        _, cdtype = _dt(cfg)
+        emb_next = params["embed"][tokens[:, 1:-1].long()].to(cdtype)
+        h = L.apply_norm(cfg, params["mtp"]["norm"], x[:, :-2])
+        h2 = torch.cat([h, emb_next], -1) @ params["mtp"]["proj"]
+        loss = loss + 0.3 * xent(h2, labels[:, 2:])
+    if cfg.moe is not None:
+        loss = loss + 0.01 * torch.sum(torch.stack(auxs))
+    return loss
 
 
 # ---------------------------------------------------------------------------

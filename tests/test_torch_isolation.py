@@ -4,7 +4,8 @@ Every module of the port is imported in a fresh interpreter where
 ``import jax`` fails (``sys.modules["jax"] = None``); afterwards no
 module named ``repro`` or ``repro.*`` may be loaded.  The same holds
 for ``python -m repro_torch.explore``, ``python -m repro_torch.serve``,
-``python -m repro_torch.launch.serve`` and a flow disk cache that the
+``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.train`` and a flow disk cache that the
 JAX package wrote into.  The entry
 points also refuse to fall back to the CPU quietly: without a card and
 without an explicit ``device`` they raise.
@@ -55,6 +56,7 @@ from repro_torch.configs import ARCHS, ShapeConfig, reduced
 from repro_torch.convert import from_jax_params
 from repro_torch.launch import steps
 from repro_torch.launch.serve import main as lm_serve_main
+from repro_torch.launch.train import main as lm_train_main
 from repro_torch.models import model_zoo, transformer as T
 import warnings
 with warnings.catch_warnings():
@@ -101,7 +103,11 @@ calls = [resolve_device,
          lambda: steps.make_decode_step(lm, None,
                                         ShapeConfig("t", 8, 1, "decode")),
          lambda: model_zoo.init(lm),
-         lambda: from_jax_params(lm, {})]
+         lambda: from_jax_params(lm, {}),
+         lambda: lm_train_main([]),
+         lambda: lm_train_main(["--reduced"]),
+         lambda: steps.make_train_step(lm, None,
+                                       ShapeConfig("t", 8, 1, "train"))]
 # only the host engines, asked for by name, need no device
 assert art.evaluate("simulate", engine="vector").cycles > 0
 for call in calls:
@@ -144,6 +150,10 @@ _LM_MODULES = ["configs", "configs.base", "configs.phi4_mini_3_8b",
                "models.transformer", "models.model_zoo", "launch",
                "launch.tuning", "launch.meshctx", "launch.steps",
                "launch.serve"]
+_TRAIN_MODULES = ["tree", "optim", "optim.adamw", "optim.schedule",
+                  "checkpoint", "checkpoint.manager", "runtime",
+                  "runtime.straggler", "runtime.fault", "runtime.elastic",
+                  "launch.train", "kernels.cross_entropy", "kernels.adamw"]
 
 
 def test_imports_no_jax_no_repro():
@@ -152,7 +162,7 @@ def test_imports_no_jax_no_repro():
     walked = proc.stdout.split()
     assert int(walked[-1]) >= 60                  # every module walked
     for mod in (_SIM_MODULES + _EXPLORE_MODULES + _SYSTEM_SERVE_MODULES
-                + _LM_MODULES):
+                + _LM_MODULES + _TRAIN_MODULES):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -162,7 +172,7 @@ def test_entry_points_raise_without_card():
         pytest.skip("a CUDA device is present: the entry points use it")
     proc = _run(_NO_CARD)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "26"
+    assert proc.stdout.split()[-1] == "29"
 
 
 def test_package_source_names_no_jax_or_repro():
@@ -244,6 +254,17 @@ def test_lm_serve_cli_help_without_jax_repro_or_triton():
     assert proc.returncode == 0, proc.stderr
     assert "python -m repro_torch.launch.serve" in proc.stdout
     assert "--arch" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.split()[-2:] == ["help", "ok"]
+
+
+_LM_TRAIN_HELP = _LM_SERVE_HELP.replace("launch.serve", "launch.train")
+
+
+def test_lm_train_cli_help_without_jax_repro_or_triton():
+    proc = _run(_LM_TRAIN_HELP)
+    assert proc.returncode == 0, proc.stderr
+    assert "python -m repro_torch.launch.train" in proc.stdout
+    assert "--ckpt-dir" in proc.stdout and "--device" in proc.stdout
     assert proc.stdout.split()[-2:] == ["help", "ok"]
 
 
