@@ -8,7 +8,8 @@ script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, each in its own thread, all started together) while Triton
+   source, the grouped GEMM's among them, each in its own thread, all
+   started together) while Triton
    compiles the SSD step's variants phase 10 launches
    (:func:`build_triton_kernels`) and the training kernels' first
    variants (:func:`build_train_kernels`), timed as set-up;
@@ -135,15 +136,20 @@ script exits non-zero):
    route, the wrap-around on the tiles with one K slice and split K, a
    CUDA-graph replay of the four shapes equal to eager calls, and the
    floor of a graph-replayed stream launch; (b)
-   phi4-mini-3.8b and mamba2-780m at published widths and vocabularies,
-   cut to 2 layers: 8 teacher-forced decode steps with the kernels on
-   the card and the plain versions on the CPU, logits within
-   ``LOGIT_TOL`` of their range, argmax agreement reported; (c)
+   phi4-mini-3.8b, mamba2-780m and olmoe-1b-7b at published widths and
+   vocabularies, cut to 2 layers, under the launchers' local mesh (olmoe
+   through ``moe_ep`` and the grouped GEMM, 3 launches an MoE layer a
+   step): 8 teacher-forced decode steps with the kernels on the card and
+   the plain versions on the CPU, logits within ``LOGIT_TOL`` of their
+   range (an MoE row up to its first routing flip between the devices),
+   argmax agreement and routing flips reported; (c)
    ``repro_torch.launch.serve.main`` at full depth, batch 4, 32 + 32
    tokens: phi4-mini greedy with a bf16 and an INT8 KV cache
-   (``tuning.tuned(int8_kv_cache=True)``) and the default mamba2-780m,
-   each with the decode kernels' launches counted (one per attention or
-   SSD layer per token), its prefill s, decode s and tok/s, peak device
+   (``tuning.tuned(int8_kv_cache=True)``), the default mamba2-780m and
+   olmoe-1b-7b greedy (16 layers, 6.92e9 parameters, under the CLI's
+   local mesh), each with the decode kernels' launches counted (one per
+   attention or SSD layer per token, three grouped-GEMM launches per MoE
+   layer per token), its prefill s, decode s and tok/s, peak device
    memory and the device-busy share of 8 steady decode steps (one
    ``torch.profiler`` trace); (d) ``quantized_linear`` driven at
    phi4-mini's decode projections, both routes equal to each other and to
@@ -172,21 +178,43 @@ script exits non-zero):
    with the plain versions on the CPU from the same parameters, loss and
    gradient norm within ``TRAIN_TOL``, every updated parameter within one
    AdamW step's reach and at most ``TRAIN_FLIP_MAX`` of them over half an
-   lr apart; (c) ``repro_torch.launch.train.main`` on mamba2-780m at full
-   width and depth and phi4-mini-3.8b at full width cut to 8 layers
-   (``depth_variant``) through ``steps.make_train_step`` in the same
-   loop: 20 steps at batch 4, seq 2048, the loss finite at every step and
-   lower at the last than at the first, the kernels' launches counted
-   (2 cross-entropy launches, 1 norm launch and one update launch a leaf
-   a step), median ms/step, tokens/s, peak device memory and the
+   lr apart (olmoe-1b-7b too, under the local mesh); (c)
+   ``repro_torch.launch.train.main`` on mamba2-780m at full width and
+   depth, and phi4-mini-3.8b and olmoe-1b-7b at full width cut to 8 and
+   4 layers (``depth_variant``) through ``steps.make_train_step`` in the
+   same loop under the local mesh: 20 steps at batch 4, seq 2048, the
+   loss finite at every step and lower at the last than at the first,
+   the kernels' launches counted (2 cross-entropy launches, 1 norm launch
+   and one update launch a leaf a step, 12 grouped-GEMM launches an MoE
+   layer a step), median ms/step, tokens/s, peak device memory and the
    device-busy share of 8 more steps (one ``torch.profiler`` trace);
-   (d) ``train.main --reduced`` saving at steps 3 and 6, step 6 removed
+   (d) ``train.main --reduced`` (olmoe-1b-7b, through ``moe_ep`` and the
+   grouped GEMM's fp32 tile) saving at steps 3 and 6, step 6 removed
    and resumed: the new step 6 within ``RESUME_TOL`` of the first, the
    stream state equal.
 
+12. the grouped expert GEMM (:func:`grouped_gemm_phase`), run before
+   phase 10, whose paths launch it: forward, dx and dw of
+   ``kernels/grouped_gemm.py`` against its plain version
+   (``ragged_dot_ref`` and its two backward products) at ``GG_CASES``
+   (olmoe's decode and training capacity buffers, up and down
+   projections; deepseek-v3's 256 experts at d 7168 / f 2048 for T 4 and
+   4096; jamba-1.5's 16 experts, top 2, d 8192 / f 24576) and
+   ``GG_EDGES`` (one group, empty groups whose dw must be exactly 0, rows
+   past the groups' sum exactly 0, K and N off the tile, unaligned rows,
+   fp32), within ``GG_TOL`` of each case's rms, a planted fault (one row
+   moved into the next group) refused; each timed by graph replay beside
+   its bound ``max(2·hits·K·N / 989e12, bytes / 3.35e12)`` (the groups'
+   rows, the non-empty groups' weights and the output), the plain version
+   and ``torch._grouped_mm`` (the yardstick; the port never calls it);
+   then one ``moe_ep`` forward and backward at olmoe's widths under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync, 9
+   launches), held to the dense dispatch.
+
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
-10d's, the decode kernels' 10c's, the training kernels' 11c's.  Each record's times are device times
+10d's, the decode kernels' 10c's, the training kernels' 11c's, the
+grouped GEMM's 10c's and 11c's.  Each record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
 cold from HBM, as a decode step reads it (``previous_ms``: the tile
@@ -196,7 +224,9 @@ before the stream kernel); the decode attention at 10c's shape (B 4,
 64 slots, bf16, the last position); the SSD step at B 4; the
 cross-entropy's forward and backward at phi4-mini's 11c shape; the
 AdamW step (norm and every leaf's update) over phi4-mini's tree at 8
-layers with fp32 moments.  The
+layers with fp32 moments; the grouped GEMM's forward, dx and dw summed
+at olmoe's training buffer (up projection; ``decode_*``: the forward
+at its decode buffer).  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -332,11 +362,18 @@ I8_CLUSTER_EDGES = {(4, 256, 1024): (128, 2), (16, 65536, 16): (4096, 16)}
 QL_SHAPES = [(4, 3072, 3072), (4, 3072, 1024), (4, 3072, 8192),
              (4, 8192, 3072)]
 # 10b: full widths and vocab, cut to 2 layers, 8 teacher-forced steps
-LM_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m")
+LM_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m", "olmoe-1b-7b")
 LM_MODEL_LAYERS, LM_MODEL_STEPS, LM_MODEL_BATCH = 2, 8, 2
 # kernels (card) vs plain versions (CPU), bf16 logits:
-# max |card - cpu| <= LOGIT_TOL * max |cpu|
+# max |card - cpu| <= LOGIT_TOL * max |cpu|.  MoE: a router's top-k can
+# flip between the two devices on one bf16 rounding (a near tie of the
+# 8th and 9th expert), and a flip changes that token's residual stream
+# and every later step of its sequence through the KV cache; so a row
+# is held to LOGIT_TOL up to the step of its first routing flip (each
+# MoE layer's top-k recomputed from its input on each device), and at
+# least MOE_CHECKED_MIN of the (step, row) pairs must be held
 LOGIT_TOL = 0.03
+MOE_CHECKED_MIN = 0.25
 # 10c: the serving CLI at full depth, (label, argv, int8 KV cache)
 LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
 LM_SERVE_RUNS = [
@@ -344,7 +381,9 @@ LM_SERVE_RUNS = [
                                  "--temperature", "0"], False),
     ("phi4-mini-3.8b, INT8 KV", ["--arch", "phi4-mini-3.8b",
                                  "--temperature", "0"], True),
-    ("mamba2-780m (default arch)", [], False)]
+    ("mamba2-780m (default arch)", [], False),
+    ("olmoe-1b-7b (moe_ep)", ["--arch", "olmoe-1b-7b", "--temperature",
+                              "0"], False)]
 # phase 11: LM training (python -m repro_torch.launch.train) and its kernels
 # 11a cross_entropy: (arch, vocabulary) at 11c's rows, B 4 x (S - 1);
 # the loss per row within XENT_LOSS_RTOL (relative) of the plain version,
@@ -373,14 +412,16 @@ ADAMW_OPS = 16                # fp32 operations a parameter
 # lr (1 + wd |p|)), and at most TRAIN_FLIP_MAX of the elements more than
 # lr / 2 apart (updates of opposite sign: gradients near zero, where bf16
 # rounding decides the sign)
-TRAIN_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m")
+TRAIN_MODEL_ARCHS = ("phi4-mini-3.8b", "mamba2-780m", "olmoe-1b-7b")
 TRAIN_MODEL_LAYERS, TRAIN_MODEL_BATCH, TRAIN_MODEL_SEQ = 2, 2, 64
 TRAIN_LR = 1e-3
 TRAIN_TOL = 0.02
 TRAIN_FLIP_MAX = 0.05
 # 11c: mamba2-780m at full depth through launch.train.main, phi4-mini at
-# 8 layers through steps.make_train_step in train.main's loop
-TRAIN_FULL = [("mamba2-780m", None), ("phi4-mini-3.8b", 8)]
+# 8 layers and olmoe-1b-7b at 4 (1.88e9 parameters) through
+# steps.make_train_step in train.main's loop (under its local mesh)
+TRAIN_FULL = [("mamba2-780m", None), ("phi4-mini-3.8b", 8),
+              ("olmoe-1b-7b", 4)]
 TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 20, 4, 2048
 TRAIN_TRACE_STEPS = 8
 # 11d: train.main --reduced (olmoe-1b-7b), saving at 3 and 6, step_6
@@ -390,6 +431,44 @@ TRAIN_TRACE_STEPS = 8
 RESUME_ARGS = ["--reduced", "--steps", "6", "--ckpt-every", "3",
                "--log-every", "1"]
 RESUME_TOL = (1e-5, 1e-8)
+# phase 12: the grouped expert GEMM (kernels/grouped_gemm.py) against its
+# plain version: (label, groups, K = d_model, N = expert d_ff, tokens,
+# top-k, down): the capacity buffer of moe_ep at tp 1 (cap = 1.25 x hits
+# rounded up to 8; hits from a random top-k routing, rows past them
+# filled with noise that the kernel must zero) times the up projection
+# (G, K, N), and where ``down`` the down projection (G, N, K); forward,
+# dx and dw of each.  deepseek-v3 and jamba at their widths are kernel
+# cases only (their models do not fit one card).
+GG_CASES = [("olmoe decode B 4", 64, 2048, 1024, 4, 8, True),
+            ("olmoe train B 4 x S 2048", 64, 2048, 1024, 8192, 8, True),
+            ("deepseek-v3 T 4", 256, 7168, 2048, 4, 8, False),
+            ("deepseek-v3 T 4096", 256, 7168, 2048, 4096, 8, False),
+            ("jamba-1.5 T 4", 16, 8192, 24576, 4, 2, False)]
+GG_CF = 1.25
+# edge cases, (label, dtype, M, K, N, group sizes): every row in one group;
+# empty groups (their dw exactly 0) and rows past the groups' sum (exactly
+# 0); K and N not multiples of the tile; unaligned rows (element loads);
+# fp32 operands (the FFMA tile)
+GG_EDGES = [("one group", "bfloat16", 200, 256, 384, [0, 0, 200, 0]),
+            ("empty groups, rows past the sum", "bfloat16", 300, 512, 256,
+             [0, 70, 0, 0, 90, 0, 0, 31]),
+            ("K, N not tile multiples", "bfloat16", 130, 200, 264,
+             [50, 0, 61]),
+            ("unaligned K, N", "bfloat16", 77, 147, 99, [20, 0, 40, 10]),
+            ("fp32", "float32", 150, 256, 128, [60, 0, 70]),
+            ("fp32 unaligned", "float32", 45, 37, 53, [10, 0, 30])]
+# kernel vs plain: |err| <= tol[0] * rms(plain) + tol[1] * |plain|.  bf16:
+# both round the fp32 sum once to bf16 (another order: one ulp, 2^-7 of
+# the value) and the rms share covers sums near zero; fp32: the order.
+# A planted fault (one row moved into the next group) must fail it.
+GG_TOL = {"bfloat16": (0.01, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+# the no-host-sync check: one moe_ep forward and backward at olmoe's
+# widths (one layer's MoE), B 4 x S 16, under
+# torch.cuda.set_sync_debug_mode("error"); against the dense dispatch on
+# the card (nothing drops at tp 1), bf16 within GG_MOE_TOL (rms share,
+# relative): other rounding orders of a bf16 chain of products
+GG_MOE_TOKENS = (4, 16)
+GG_MOE_TOL = (0.1, 2.0 ** -6)
 
 
 def log(*a):
@@ -2248,19 +2327,59 @@ def ql_drive(device, seed: int = 0) -> dict:
     return res
 
 
+def moe_layers(cfg) -> int:
+    """MoE sublayers of ``cfg`` (each launches the grouped GEMM 3 times a
+    forward under a mesh)."""
+    from repro_torch.models import transformer as T
+    return cfg.n_blocks * sum(
+        1 for i, ch in enumerate(cfg.block_pattern)
+        if T._has_ffn(cfg, ch) and T._use_moe(cfg, i))
+
+
+@contextlib.contextmanager
+def routing_recorded(routes: list):
+    """Within: every ``moe_ep_apply_local`` call appends its router's
+    top-k (each row's experts, sorted) to ``routes``, recomputed from its
+    input as the call computes it."""
+    import torch
+    from repro_torch.models import moe_ep
+
+    orig = moe_ep.moe_ep_apply_local
+
+    def spy(cfg, p, x, *a, **kw):
+        m = cfg.moe
+        logits = (x.reshape(-1, x.shape[-1]) @ p["router"]).float()
+        scores = (torch.sigmoid(logits) if m.router_score == "sigmoid"
+                  else torch.softmax(logits, dim=-1))
+        idx = torch.topk(scores, m.experts_per_tok, dim=-1).indices
+        routes.append(idx.sort(-1).values.cpu())
+        return orig(cfg, p, x, *a, **kw)
+
+    moe_ep.moe_ep_apply_local = spy
+    try:
+        yield
+    finally:
+        moe_ep.moe_ep_apply_local = orig
+
+
 def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
                    steps: int = LM_MODEL_STEPS, batch: int = LM_MODEL_BATCH,
                    seed: int = 0) -> dict:
     """Phase 10b: ``name`` at its published widths and vocabulary, cut to
     ``layers`` layers, random weights from ``seed``: ``steps``
     teacher-forced decode steps on ``device`` (the kernels) and with the
-    same bf16 parameters on the CPU (the plain versions).  The logits
-    must agree within ``LOGIT_TOL`` of their range; returns the largest
-    gap and how often the argmax agrees."""
+    same bf16 parameters on the CPU (the plain versions), both under the
+    launchers' local mesh (MoE through ``moe_ep``).  The logits must
+    agree within ``LOGIT_TOL`` of their range (an MoE row up to its
+    first routing flip, ``MOE_CHECKED_MIN`` of the rows held); returns
+    the largest gap, how often the argmax agrees and the flips."""
     import dataclasses
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data import make_batch
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.launch import meshctx
+    from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
@@ -2275,26 +2394,50 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
     st_dev = T.init_decode_state(cfg, cast, batch, steps)
     st_cpu = T.init_decode_state(cfg, cpu, batch, steps)
     worst, agree, t_dev, t_cpu = 0.0, 0, 0.0, 0.0
+    diverged = torch.zeros(batch, dtype=torch.bool)
+    flips, held = 0, 0
+    mesh = local_mesh()
+    GG.ragged_dot.launches = 0
     for t in range(steps):
         tok = tokens[:, t:t + 1]
-        t0 = time.perf_counter()
-        got, st_dev = T.decode_step(cfg, cast, st_dev, tok.to(dev))
-        got = got.cpu()
-        t_dev += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want, st_cpu = T.decode_step(cfg, cpu, st_cpu, tok)
-        t_cpu += time.perf_counter() - t0
-        gap = float((got - want).abs().max())
+        r_dev, r_cpu = [], []
+        with meshctx.use_mesh(mesh, data_axes=("data",)):
+            t0 = time.perf_counter()
+            with routing_recorded(r_dev):
+                got, st_dev = T.decode_step(cfg, cast, st_dev, tok.to(dev))
+            got = got.cpu()
+            t_dev += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with routing_recorded(r_cpu):
+                want, st_cpu = T.decode_step(cfg, cpu, st_cpu, tok)
+            t_cpu += time.perf_counter() - t0
+        for a, b in zip(r_dev, r_cpu):
+            flip = (a != b).any(-1)
+            flips += int(flip.sum())
+            diverged |= flip
+        keep = ~diverged
+        held += int(keep.sum())
         scale = float(want.abs().max())
+        gap = float((got[keep] - want[keep]).abs().max()) \
+            if bool(keep.any()) else 0.0
         if not (bool(torch.isfinite(got).all()) and gap <= LOGIT_TOL * scale):
             raise AssertionError(f"{name} step {t}: max |card - cpu| {gap} "
                                  f"over max |logit| {scale}")
         worst = max(worst, gap / scale)
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    if held < MOE_CHECKED_MIN * steps * batch:
+        raise AssertionError(f"{name}: {flips} routing flips left {held} of "
+                             f"{steps * batch} (step, row) pairs to hold")
+    n_moe = moe_layers(cfg)
+    if dev.type == "cuda" and GG.ragged_dot.launches != 3 * n_moe * steps:
+        raise AssertionError(f"{name}: {GG.ragged_dot.launches} grouped-GEMM "
+                             f"launches, expected {3 * n_moe * steps}")
     return {"arch": name, "layers": layers, "steps": steps, "batch": batch,
             "wall_s": time.perf_counter() - t_start,
             "max_gap_over_range": worst,
             "argmax_agree": agree / (steps * batch),
+            "routing_flips": flips, "pairs_held": held,
+            "grouped_gemm_launches": GG.ragged_dot.launches,
             "device_s": t_dev, "cpu_s": t_cpu}
 
 
@@ -2321,7 +2464,8 @@ def decode_profile(args, steps: int = 8) -> tuple:
     import torch
     from repro_torch.configs import ARCHS, ShapeConfig, reduced
     from repro_torch.data import make_batch
-    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
 
     cfg = reduced(ARCHS[args.arch]) if args.reduced else ARCHS[args.arch]
@@ -2337,15 +2481,17 @@ def decode_profile(args, steps: int = 8) -> tuple:
                                          seed=args.seed, step=0)["tokens"])
     tokens = tokens.to(dev)
     state = T.init_decode_state(cfg, params, args.batch, total)
-    for t in range(args.prompt_len):
-        _, state = fn(params, state, tokens[:, t:t + 1])
-
-    def run():
-        nonlocal state
-        for t in range(args.prompt_len, end):
+    mesh = local_mesh()
+    with meshctx.use_mesh(mesh, data_axes=("data",)):
+        for t in range(args.prompt_len):
             _, state = fn(params, state, tokens[:, t:t + 1])
 
-    return device_profile(run)
+        def run():
+            nonlocal state
+            for t in range(args.prompt_len, end):
+                _, state = fn(params, state, tokens[:, t:t + 1])
+
+        return device_profile(run)
 
 
 def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
@@ -2356,12 +2502,15 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
     ``tuning.tuned(int8_kv_cache=True)``), the decode kernels' launch
     counts set to 0 just before each run and read just after: one
     attention launch per attention layer and token, one SSD launch per
-    SSD layer and token.  Prints the CLI's lines; ``profile`` traces
-    one more run of each for the device-busy share."""
+    SSD layer and token, three grouped-GEMM launches per MoE layer and
+    token (``moe_ep`` under the CLI's local mesh).  Prints the CLI's
+    lines; ``profile`` traces one more run of each for the device-busy
+    share."""
     import re
     import torch
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import ssd_decode as SD
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import tuning
@@ -2378,6 +2527,7 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
         tokens = args.prompt_len + args.gen
         n_attn = cfg.n_blocks * cfg.block_pattern.count("A")
         n_ssm = cfg.n_blocks * cfg.block_pattern.count("M")
+        n_moe = moe_layers(cfg)
 
         def knob():
             return (tuning.tuned(int8_kv_cache=True) if int8
@@ -2387,10 +2537,11 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
             torch.cuda.reset_peak_memory_stats()
         DA.gqa_decode_attention.launches = 0
         SD.ssd_decode_step.launches = 0
+        GG.ragged_dot.launches = 0
         with knob():
             wall, text = run_lm_serve(argv)
         launched = (DA.gqa_decode_attention.launches,
-                    SD.ssd_decode_step.launches)
+                    SD.ssd_decode_step.launches, GG.ragged_dot.launches)
         lines = text.strip().splitlines()
         m = re.fullmatch(r"prefill: (\S+)s  decode: (\S+)s \((\S+) tok/s\)",
                          lines[1])
@@ -2401,9 +2552,10 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
                "wall_s": wall, "prefill_s": float(m.group(1)),
                "decode_s": float(m.group(2)), "tok_s": float(m.group(3)),
                "attention_launches": launched[0],
-               "ssd_launches": launched[1], "lines": lines}
+               "ssd_launches": launched[1],
+               "grouped_gemm_launches": launched[2], "lines": lines}
         if on_card:
-            want = (tokens * n_attn, tokens * n_ssm)
+            want = (tokens * n_attn, tokens * n_ssm, 3 * tokens * n_moe)
             if launched != want:
                 raise AssertionError(f"{label}: launches {launched}, "
                                      f"expected {want}")
@@ -2417,7 +2569,8 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
         for line in lines:
             log(f"  {line}")
         msg = (f"  {label}: {wall:.2f} s in all, launches attention "
-               f"{launched[0]}, SSD {launched[1]}")
+               f"{launched[0]}, SSD {launched[1]}, grouped GEMM "
+               f"{launched[2]}")
         if "peak_gb" in row:
             msg += f", peak device memory {row['peak_gb']:.2f} GB"
         if "device_busy_ms" in row:
@@ -2700,13 +2853,15 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
     the same parameters and batch.  Loss and gradient norm within
     ``TRAIN_TOL``; every updated parameter within one AdamW step's reach
     of the CPU's, and at most ``TRAIN_FLIP_MAX`` of the elements more than
-    half an lr apart."""
+    half an lr apart.  Both under the launchers' local mesh (MoE through
+    ``moe_ep``)."""
     import dataclasses
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.data import make_batch
-    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -2721,13 +2876,15 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
         cfg, batch, seq, seed=seed, step=0).items()}
     shape = ShapeConfig("11b", seq, batch["tokens"].shape[0], "train")
     out = {}
+    mesh = local_mesh()
     for label, tree, d in (("card", params, dev),
                            ("cpu", cpu, torch.device("cpu"))):
         fn, _ = lm_steps.make_train_step(cfg, d, shape, hp,
                                          lr_peak=TRAIN_LR, warmup=1,
                                          total_steps=10)
         t0 = time.perf_counter()
-        tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
+        with meshctx.use_mesh(mesh, data_axes=("data",)):
+            tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -2761,20 +2918,24 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
 def train_loop(cfg, device, steps: int, batch: int, seq: int,
                trace_steps: int = 0, seed: int = 0) -> dict:
     """``launch.train.main``'s loop (its data stream, pinned batches, lr
-    schedule and AdamW) through ``steps.make_train_step`` for ``steps``
-    steps, the launches of the two training kernels counted over them;
-    then ``trace_steps`` more in one ``torch.profiler`` trace."""
+    schedule and AdamW, under its local mesh) through
+    ``steps.make_train_step`` for ``steps`` steps, the launches of the
+    training kernels and the grouped GEMM counted over them; then
+    ``trace_steps`` more in one ``torch.profiler`` trace."""
     import numpy as np
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import SyntheticStream
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.launch import meshctx
     from repro_torch.launch import steps as lm_steps, train as lm_train
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
 
     dev = torch.device(device)
+    mesh = lm_train.local_mesh()
     total = steps + trace_steps
     fn, _ = lm_steps.make_train_step(
         cfg, dev, ShapeConfig("11c", seq, batch, "train"), AdamWConfig(),
@@ -2787,25 +2948,28 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
 
     def one():
         b = lm_train._to_device(next(stream), dev)
-        state["params"], state["opt"], m = fn(state["params"], state["opt"],
-                                              b, state["step"])
+        with meshctx.use_mesh(mesh, data_axes=("data",)):
+            state["params"], state["opt"], m = fn(
+                state["params"], state["opt"], b, state["step"])
         state["step"] += 1
         return float(m["loss"])
 
     KX.cross_entropy.launches = KA.grad_norm.launches = 0
-    KA.adamw_step.launches = 0
+    KA.adamw_step.launches = GG.ragged_dot.launches = 0
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(one())
         times.append(time.perf_counter() - t0)
     launches = (KX.cross_entropy.launches, KA.grad_norm.launches,
-                KA.adamw_step.launches)
+                KA.adamw_step.launches, GG.ragged_dot.launches)
     row = {"steps": steps, "batch": batch, "seq": seq, "losses": losses,
            "median_ms": 1e3 * float(np.median(times)),
            "leaves": len(tree_util.leaves(params)),
+           "moe_layers": moe_layers(cfg),
            "xent_launches": launches[0], "norm_launches": launches[1],
-           "update_launches": launches[2]}
+           "update_launches": launches[2],
+           "grouped_gemm_launches": launches[3]}
     if trace_steps:
         t0 = time.perf_counter()
         wall, busy, top = device_profile(
@@ -2820,34 +2984,40 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
 
 def check_training(label: str, row: dict) -> None:
     """Finite losses that fall, and the kernels' launches: 2 cross-entropy
-    launches a step (forward, backward; 4 with MTP, which neither
-    configuration has), 1 norm and one update launch a leaf a step."""
+    launches a step (forward, backward; 4 with MTP, which no
+    configuration here has), 1 norm and one update launch a leaf a step,
+    and 12 grouped-GEMM launches an MoE layer a step (3 forward, 3 in the
+    block's recompute under remat, a dx and a dw for each of the 3 in the
+    backward)."""
     import math
     losses, steps = row["losses"], row["steps"]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{label}: losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
-    want = (2 * steps, steps, steps * row["leaves"])
+    want = (2 * steps, steps, steps * row["leaves"],
+            12 * steps * row["moe_layers"])
     got = (row["xent_launches"], row["norm_launches"],
-           row["update_launches"])
+           row["update_launches"], row["grouped_gemm_launches"])
     if got != want:
         raise AssertionError(f"{label}: launches (cross_entropy, norm, "
-                             f"update) {got}, expected {want}")
+                             f"update, grouped GEMM) {got}, expected "
+                             f"{want}")
 
 
 def train_full_phase(device, seed: int = 0) -> list:
     """Phase 11c: mamba2-780m at full width and depth through
     ``launch.train.main`` (20 steps, its log parsed), then 8 more steady
-    steps of it traced; phi4-mini-3.8b at full width cut to 8 layers
-    through ``steps.make_train_step`` in the same loop, 20 steps and 8
-    traced.  Checks :func:`check_training`; records ms/step, tokens/s,
+    steps of it traced; phi4-mini-3.8b and olmoe-1b-7b at full width cut
+    to 8 and 4 layers through ``steps.make_train_step`` in the same loop
+    (under its local mesh), 20 steps and 8 traced.  Checks :func:`check_training`; records ms/step, tokens/s,
     peak device memory and the device-busy share."""
     import re
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import depth_variant
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.launch import train as lm_train
 
     dev = torch.device(device)
@@ -2862,7 +3032,7 @@ def train_full_phase(device, seed: int = 0) -> list:
                     str(TRAIN_FULL_SEQ), "--log-every", "1"]
             torch.cuda.reset_peak_memory_stats(dev)
             KX.cross_entropy.launches = KA.grad_norm.launches = 0
-            KA.adamw_step.launches = 0
+            KA.adamw_step.launches = GG.ragged_dot.launches = 0
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lm_train.main(argv)
@@ -2879,6 +3049,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "xent_launches": KX.cross_entropy.launches,
                    "norm_launches": KA.grad_norm.launches,
                    "update_launches": KA.adamw_step.launches,
+                   "grouped_gemm_launches": GG.ragged_dot.launches,
+                   "moe_layers": moe_layers(cfg),
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
                                 TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
@@ -2903,7 +3075,8 @@ def train_full_phase(device, seed: int = 0) -> list:
             f" ({row['tok_s']:.0f} tok/s), peak device memory "
             f"{row['peak_gb']:.2f} GB; launches cross_entropy "
             f"{row['xent_launches']}, norm {row['norm_launches']}, update "
-            f"{row['update_launches']} ({row['leaves']} leaves); "
+            f"{row['update_launches']} ({row['leaves']} leaves), grouped "
+            f"GEMM {row['grouped_gemm_launches']}; "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
@@ -2967,6 +3140,288 @@ def train_resume_phase(device=None, extra=()) -> dict:
             "max_abs_gap": worst, "metadata": meta}
 
 
+def gg_group_sizes(groups: int, tokens: int, top_k: int, gen,
+                   device) -> tuple:
+    """``(group sizes (G,) int32 on device, hits, cap)``: ``tokens`` each
+    routed to ``top_k`` distinct experts of ``groups`` by random scores,
+    and moe_ep's capacity at tp 1."""
+    import torch
+    scores = torch.rand((tokens, groups), generator=gen)
+    idx = torch.topk(scores, top_k, dim=-1).indices.reshape(-1)
+    sizes = torch.bincount(idx, minlength=groups).to(torch.int32)
+    hits = tokens * top_k
+    cap = -(-max(int(GG_CF * hits), 8) // 8) * 8
+    return sizes.to(device), hits, cap
+
+
+def gg_bound(mode: int, hits: int, m: int, k: int, n: int, groups: int,
+             nonempty: int, elem: int, peak_ops: float) -> tuple:
+    """``(ms, "operations" | "bytes")`` of one grouped product: the larger
+    of ``2·hits·K·N`` operations at ``peak_ops`` and the bytes it must
+    move at the HBM rate: the rows of the groups read once, the weights of
+    the non-empty groups (fwd, dx) read once, the output written once
+    (dw: every group's)."""
+    from repro_torch.kernels import grouped_gemm as GG
+    ops = 2.0 * hits * k * n / peak_ops
+    if mode == GG.FWD:
+        nbytes = hits * k + nonempty * k * n + m * n
+    elif mode == GG.DX:
+        nbytes = hits * n + nonempty * k * n + m * k
+    else:
+        nbytes = hits * k + hits * n + groups * k * n
+    t_bytes = elem * nbytes / PEAK_BYTES
+    return 1e3 * max(ops, t_bytes), "operations" if ops >= t_bytes \
+        else "bytes"
+
+
+def chunked_scaled_within(got, want, scale: float, rtol: float,
+                          chunk: int = 1 << 26) -> tuple:
+    """:func:`scaled_within` a chunk of ``chunk`` elements at a time (a dw
+    at deepseek-v3's widths is 3.8e9 elements: its fp32 copies would not
+    fit beside it)."""
+    import torch
+    if got.shape != want.shape:
+        return float("inf"), float("inf"), False
+    g, w = got.reshape(-1), want.reshape(-1)
+    n = w.numel()
+    sq = sum(float(w[i:i + chunk].float().square().sum(dtype=torch.float64))
+             for i in range(0, n, chunk))
+    rms = (sq / n) ** 0.5 if n else 0.0
+    err, ok = 0.0, True
+    for i in range(0, n, chunk):
+        wc = w[i:i + chunk].float()
+        diff = (g[i:i + chunk].float() - wc).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= scale * rms + rtol * wc.abs()).all())
+    return err, err / rms if rms else (float("inf") if err else 0.0), ok
+
+
+def gg_check(label, got, want, sizes, mode, tol, fault=False) -> tuple:
+    """``(max |err|, err over rms, ok)`` of a kernel output against the
+    plain one, with the exact zeros the kernel owes: rows past the
+    groups' sum (fwd, dx), an empty group's dw.  ``fault``: the caller
+    expects it to fail and nothing raises."""
+    from repro_torch.kernels import grouped_gemm as GG
+    err, rel, ok = chunked_scaled_within(got, want, *tol)
+    end = int(sizes.clamp(min=0).sum())
+    if mode == GG.DW:
+        zeros = all(bool((got[e] == 0).all())
+                    for e in (sizes == 0).nonzero().flatten().tolist())
+    else:
+        zeros = bool((got[end:] == 0).all())
+    ok = ok and zeros
+    if not ok and not fault:
+        raise AssertionError(f"grouped GEMM {label}: max |err| {err} "
+                             f"({rel:.4f} of the rms; exact zeros {zeros})")
+    return err, rel, ok
+
+
+def gg_timing_ms(fn, out_bytes: int, device) -> float:
+    """Device ms of ``fn()`` by graph replay; calls whose output passes a
+    GB are captured 2 at a time, not ``REPS``."""
+    if not str(device).startswith("cuda"):
+        return dev_ms(fn, device)
+    return graph_ms(fn, REPS if out_bytes < 1e9 else 2)
+
+
+def gg_library(mode, a, b, sizes):
+    """The yardstick ``torch._grouped_mm`` for the same product (bf16 on
+    the card only), or ``None`` where this torch lacks it or refuses the
+    operands."""
+    import torch
+    from repro_torch.kernels import grouped_gemm as GG
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or a.dtype != torch.bfloat16 or not a.is_cuda:
+        return None
+    offs = torch.cumsum(sizes.to(torch.int64), 0).to(torch.int32)
+    if mode == GG.FWD:
+        call = lambda: fn(a, b, offs=offs)                  # noqa: E731
+    elif mode == GG.DX:
+        call = lambda: fn(a, b.transpose(-2, -1), offs=offs)  # noqa: E731
+    else:
+        call = lambda: fn(a.t(), b, offs=offs)              # noqa: E731
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"    torch._grouped_mm refused: {str(e).splitlines()[0][:120]}")
+        return None
+    return call
+
+
+def gg_products(label, x, w, dy, sizes, hits, device, tol, rows) -> None:
+    """Forward, dx and dw of one case against the plain versions, timed;
+    each a row appended to ``rows``."""
+    import torch
+    from repro_torch.kernels import grouped_gemm as GG
+    m, k = x.shape
+    groups, _, n = w.shape
+    nonempty = int((sizes > 0).sum())
+    elem = x.element_size()
+    peak = PEAK_BF16_OPS if x.dtype == torch.bfloat16 else PEAK_F32_OPS
+    prods = [(GG.FWD, "fwd", x, w, GG.ragged_dot_ref, m * n),
+             (GG.DX, "dx", dy, w, GG.ragged_dot_dx_ref, m * k),
+             (GG.DW, "dw", x, dy, GG.ragged_dot_dw_ref, groups * k * n)]
+    for mode, name, a, b, ref, out_elems in prods:
+        # on the card the kernel; on the CPU (a rehearsal) the plain version
+        kernel = {GG.FWD: GG._fwd, GG.DX: GG._dx, GG.DW: GG._dw}[mode]
+        got = kernel(a, b, sizes)
+        want = ref(a, b, sizes)
+        if a.is_cuda:
+            torch.cuda.synchronize()
+        err, rel, _ = gg_check(f"{label} {name}", got, want, sizes, mode, tol)
+        del got, want
+        b_ms, b_by = gg_bound(mode, hits, m, k, n, groups, nonempty, elem,
+                              peak)
+        ms = gg_timing_ms(lambda: kernel(a, b, sizes), out_elems * elem,
+                          device)
+        plain_ms = cuda_ms(lambda: ref(a, b, sizes), 3) if a.is_cuda \
+            else dev_ms(lambda: ref(a, b, sizes), device)
+        lib = gg_library(mode, a, b, sizes)
+        lib_ms = None if lib is None else gg_timing_ms(lib, out_elems * elem,
+                                                      device)
+        row = {"case": label, "product": name, "dtype": str(x.dtype)[6:],
+               "M": m, "K": k, "N": n, "groups": groups,
+               "nonempty": nonempty, "hits": hits, "max_abs_err": err,
+               "err_over_rms": rel, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        rows.append(row)
+        log(f"  {label} {name}: M {m} K {k} N {n}, {nonempty}/{groups} "
+            f"groups, {hits} rows: max |err| {err:.3g} ({rel:.4f} of the "
+            f"rms); kernel {ms:.4f} ms, bound {b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / ms:.0f}%), plain {plain_ms:.4f}, _grouped_mm "
+            + ("n/a" if lib_ms is None else f"{lib_ms:.4f}"))
+
+
+def gg_fault(x, w, dy, sizes, tol) -> None:
+    """The planted fault: one row moved from the first non-empty group
+    into the next, run by the kernel and held against the plain version
+    on the true sizes; forward and dw must both fail the tolerance."""
+    from repro_torch.kernels import grouped_gemm as GG
+    bad = sizes.clone()
+    g = int((sizes[:-1] > 0).nonzero()[0])
+    bad[g] -= 1
+    bad[g + 1] += 1
+    for mode, a, b, ref in ((GG.FWD, x, w, GG.ragged_dot_ref),
+                            (GG.DW, x, dy, GG.ragged_dot_dw_ref)):
+        got = (GG._fwd if mode == GG.FWD else GG._dw)(a, b, bad)
+        _, rel, ok = gg_check("planted fault", got, ref(a, b, sizes), sizes,
+                              mode, tol, fault=True)
+        if ok:
+            raise AssertionError(f"grouped GEMM: the planted fault (mode "
+                                 f"{mode}) passed ({rel:.4f} of the rms)")
+        log(f"  planted fault (one row into group {g + 1}), mode {mode}: "
+            f"{rel:.3f} of the rms, refused")
+
+
+def moe_no_sync_check(device, seed: int = 0) -> dict:
+    """One ``moe_ep`` forward and backward at olmoe-1b-7b's widths (one
+    layer's MoE, bf16, ``GG_MOE_TOKENS``) under the local mesh with
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises.
+    The grouped GEMM launches 9 times (3 forward, a dx and a dw each
+    backward); output and x gradient against the dense dispatch (no
+    mesh) on the same device."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.launch import meshctx
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import layers as L
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = ARCHS["olmoe-1b-7b"]
+    gen = torch.Generator(dev).manual_seed(seed)
+    p = {k: v.requires_grad_(True)
+         for k, v in L.moe_init(cfg, gen, torch.bfloat16).items()}
+    b, s = GG_MOE_TOKENS
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16).requires_grad_(True)
+    cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    leaves = [p[k] for k in sorted(p)] + [x]
+    mesh = local_mesh()
+
+    def run(ctx_mesh):
+        with meshctx.use_mesh(ctx_mesh, data_axes=("data",)):
+            out, aux = L.moe_apply(cfg, p, x)
+        loss = (out.float() * cot).sum() + aux
+        return out, torch.autograd.grad(loss, leaves)
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    GG.ragged_dot.launches = 0
+    try:
+        out, grads = run(mesh)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+    launched = GG.ragged_dot.launches
+    if on_card and launched != 9:
+        raise AssertionError(f"moe_ep: {launched} grouped-GEMM launches, "
+                             f"expected 9")
+    dense, dgrads = run(None)
+    o_err, o_rel, o_ok = scaled_within(out.detach(), dense.detach(),
+                                       *GG_MOE_TOL)
+    x_err, x_rel, x_ok = scaled_within(grads[-1], dgrads[-1], *GG_MOE_TOL)
+    if not (o_ok and x_ok and all(bool(torch.isfinite(g).all())
+                                  for g in grads)):
+        raise AssertionError(f"moe_ep against the dense dispatch: out "
+                             f"{o_rel:.4f}, dx {x_rel:.4f} of the rms")
+    log(f"  moe_ep forward + backward at olmoe's widths, B {b} x S {s}, "
+        f"under set_sync_debug_mode('error'): no host sync, {launched} "
+        f"grouped-GEMM launches; against the dense dispatch out "
+        f"{o_rel:.4f}, dx {x_rel:.4f} of the rms (limit {GG_MOE_TOL})")
+    return {"launches": launched, "out_over_rms": o_rel,
+            "dx_over_rms": x_rel}
+
+
+def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
+                       edges=GG_EDGES) -> dict:
+    """Phase 12: the grouped expert GEMM against its plain version on the
+    card — forward, dx and dw at ``cases`` (olmoe's decode and training
+    capacity buffers, deepseek-v3's and jamba's widths) and the
+    ``edges``, within ``GG_TOL`` of each case's rms, with a planted fault
+    refused; each product timed (graph replay) beside its bound, the
+    plain version and ``torch._grouped_mm``; then the no-host-sync check
+    of ``moe_ep`` (:func:`moe_no_sync_check`)."""
+    import torch
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(seed)
+    # operands drawn on the device: deepseek-v3's weights are 3.8e9 values
+    dgen = torch.Generator(dev).manual_seed(seed)
+    rows = []
+    tol = GG_TOL["bfloat16"]
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=dgen, device=dev,
+                           dtype=dtype) * scale
+
+    for label, groups, d, f, tokens, top_k, down in cases:
+        sizes, hits, cap = gg_group_sizes(groups, tokens, top_k, gen, dev)
+        shapes = [("up", d, f)] + ([("down", f, d)] if down else [])
+        for part, k, n in shapes:
+            x = randn(cap, k)
+            w = randn(groups, k, n, scale=k ** -0.5)
+            dy = randn(cap, n)
+            gg_products(f"{label} {part}", x, w, dy, sizes, hits, dev, tol,
+                        rows)
+            if label.startswith("olmoe train") and part == "up":
+                gg_fault(x, w, dy, sizes, tol)
+            del x, w, dy
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    for label, dtype, m, k, n, sizes in edges:
+        dt = getattr(torch, dtype)
+        sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        hits = min(int(sz.sum()), m)
+        gg_products(label, randn(m, k, dtype=dt),
+                    randn(len(sizes), k, n, scale=k ** -0.5, dtype=dt),
+                    randn(m, n, dtype=dt), sz, hits, dev, GG_TOL[dtype],
+                    rows)
+    return {"rows": rows, "moe": moe_no_sync_check(dev, seed)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3010,9 +3465,10 @@ def main() -> int:
     from repro_torch.kernels import nvcc
     t0 = time.perf_counter()
     from repro_torch.kernels import int8_matmul as I8
-    with ThreadPoolExecutor(3) as pool:
+    from repro_torch.kernels import grouped_gemm as GG
+    with ThreadPoolExecutor(4) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
-                 pool.submit(I8.build_library)]
+                 pool.submit(I8.build_library), pool.submit(GG.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -3295,6 +3751,17 @@ def main() -> int:
     log(f"serving phase done in {report['serve']['wall_s']:.1f} s; kernel "
         f"launches on the main paths: {launches_total} [{card}]")
 
+    # 12. the grouped expert GEMM, before the phases that run it ------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("phase 12: the grouped expert GEMM against its plain version; "
+        "moe_ep with no host sync")
+    report["grouped_gemm"] = grouped_gemm_phase(dev, args.seed)
+    report["grouped_gemm"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"grouped GEMM phase done in {report['grouped_gemm']['wall_s']:.1f} "
+        f"s [{card}]")
+
     # 10. LM serving (python -m repro_torch.launch.serve) and its kernels -----
     t0 = time.perf_counter()
     log(f"phase 10a: the LM kernels against their plain versions (device "
@@ -3309,7 +3776,9 @@ def main() -> int:
         log(f"  {r['arch']} x{r['layers']} layers, {r['steps']} steps at "
             f"batch {r['batch']}: max |card - cpu| / max |logit| "
             f"{r['max_gap_over_range']:.4f} (tolerance {LOGIT_TOL}), argmax "
-            f"agrees {100 * r['argmax_agree']:.1f}%; card {r['device_s']:.2f}"
+            f"agrees {100 * r['argmax_agree']:.1f}%, routing flips "
+            f"{r['routing_flips']} ({r['pairs_held']} (step, row) pairs "
+            f"held); card {r['device_s']:.2f}"
             f" s, cpu {r['cpu_s']:.2f} s of {r['wall_s']:.1f} s")
     log("phase 10c: python -m repro_torch.launch.serve at full depth")
     lms = lm_serve_phase(profile=True)
@@ -3432,6 +3901,11 @@ def main() -> int:
         "bound_by": ssd["bound_by"],
         "library_ms": ssd["library_ms"],
     }]
+    gg_rows = report["grouped_gemm"]["rows"]
+    gg_train = [main_row(gg_rows, case="olmoe train B 4 x S 2048 up",
+                         product=prod) for prod in ("fwd", "dx", "dw")]
+    gg_dec = main_row(gg_rows, case="olmoe decode B 4 up", product="fwd")
+    gg_lib = [r["library_ms"] for r in gg_train]
     xent = main_row(train_k["cross_entropy"], arch="phi4-mini-3.8b")
     aw = main_row(train_k["adamw_step"], moments="float32")
     kernels += [{
@@ -3463,6 +3937,27 @@ def main() -> int:
         "bound_ms": aw["bound_ms"],
         "bound_by": aw["bound_by"],
         "library_ms": aw["library_ms"],
+    }, {
+        "name": "grouped_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+        "replaces": "src/repro/models/moe_ep.py:114",
+        "launches": sum(r["grouped_gemm_launches"] for r in runs)
+        + sum(r["grouped_gemm_launches"] for r in train_full),
+        "max_abs_err": max(r["max_abs_err"] for r in gg_rows),
+        # forward + dx + dw of olmoe's up projection at 11c's shape (65,536
+        # hits in a capacity buffer of 81,920 rows, 64 experts)
+        "ms": sum(r["ms"] for r in gg_train),
+        "plain_ms": sum(r["plain_ms"] for r in gg_train),
+        "bound_ms": sum(r["bound_ms"] for r in gg_train),
+        "bound_by": max(("operations", "bytes"), key=lambda by: sum(
+            r["bound_ms"] for r in gg_train if r["bound_by"] == by)),
+        "library_ms": None if None in gg_lib else sum(gg_lib),
+        # the forward at 10c's decode shape (32 hits, cap 40)
+        "decode_ms": gg_dec["ms"],
+        "decode_bound_ms": gg_dec["bound_ms"],
+        "decode_plain_ms": gg_dec["plain_ms"],
+        "decode_library_ms": gg_dec["library_ms"],
     }]
     for k in kernels:
         if k["launches"] <= 0:
@@ -3471,9 +3966,9 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    log("kernels: bitserial_mvm, int8_matmul and gqa_decode_attention "
-        "(cuda, sm_90a), ssd_decode_step, cross_entropy and adamw_step "
-        "(triton)")
+    log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention and "
+        "grouped_gemm (cuda, sm_90a), ssd_decode_step, cross_entropy and "
+        "adamw_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

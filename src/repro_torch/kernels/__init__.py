@@ -3,7 +3,8 @@ hand-written CUDA source for Hopper (:mod:`.bitserial_mvm`), the direct
 INT8 GEMM at decode shapes in its own CUDA source and the planner that
 routes between the two (:mod:`.int8_matmul`), the LM decode attention in
 CUDA (:mod:`.decode_attention`; the CUDA sources built by :mod:`.nvcc`
-at first use), the SSD decode step, the training loss's cross-entropy
+at first use), the grouped expert GEMM of expert-parallel MoE in CUDA
+(:mod:`.grouped_gemm`), the SSD decode step, the training loss's cross-entropy
 and the AdamW step in Triton (:mod:`.ssd_decode`, :mod:`.cross_entropy`,
 :mod:`.adamw`, their sources loaded by :mod:`.triton_source`;
 sources under ``csrc/``), their plain

@@ -6,7 +6,10 @@ another.  ``--reduced`` serves the smoke-scale config.  Decode uses the
 pre-allocated (ring-buffered under SWA, INT8 under the
 ``int8_kv_cache`` knob) caches, MLA latent caches, or SSD states —
 whatever the architecture calls for — through the hand kernels for
-decode attention and the SSD step on CUDA.
+decode attention and the SSD step on CUDA.  As the reference's launcher,
+it runs under the local ``(1, 1)`` ``("data", "model")`` mesh, so MoE
+architectures decode through expert-parallel MoE (``models/moe_ep``,
+the grouped expert GEMM).
 
 Example::
 
@@ -34,6 +37,7 @@ from ..data import make_batch
 from ..device import resolve_device
 from ..models import transformer as T
 from . import meshctx, steps
+from .mesh import data_axes_of, make_mesh
 
 __all__ = ["main", "serve"]
 
@@ -51,12 +55,13 @@ def serve(args: argparse.Namespace) -> Dict:
         cfg = reduced(cfg)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh needs launch/mesh and sharding, which are "
-            "not ported yet (ROADMAP §1)")
+            "--production-mesh needs the production mesh and "
+            "launch/sharding, which are not ported yet (ROADMAP §1)")
     dev = resolve_device(args.device)
     total = args.prompt_len + args.gen
+    mesh = make_mesh((1, 1), ("data", "model"))
 
-    with meshctx.use_mesh(None):
+    with meshctx.use_mesh(mesh, data_axes=data_axes_of(mesh)):
         params = T.init_params(cfg, torch.Generator(dev).manual_seed(
             args.seed), dev)
         # one cast per model (the masters are not needed after it)

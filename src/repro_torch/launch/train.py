@@ -11,6 +11,11 @@ another.  ``--reduced`` trains the smoke-scale config.  Demonstrates:
 * elastic re-mesh planning on simulated node loss (``--simulate-loss``,
   planned over the local mesh of one device).
 
+As the reference's launcher, it runs under a mesh context: the local
+``(1, 1)`` ``("data", "model")`` mesh (:func:`.mesh.make_mesh`), so MoE
+architectures train through expert-parallel MoE (``models/moe_ep``, the
+grouped expert GEMM).
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -22,8 +27,8 @@ the median ms/step).  The parameters come from a generator seeded 0
 (its numbers differ from ``jax.random``'s).  A checkpoint named step N
 holds the state after N updates and the stream positioned at batch N,
 so a resume from it repeats nothing: every ``--ckpt-every`` updates and
-at the end.  ``--production-mesh`` raises: the mesh and sharding modules
-are not ported yet.
+at the end.  ``--production-mesh`` raises: the production mesh and the
+sharding module are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,11 +48,14 @@ from ..models import transformer as T
 from ..optim import AdamWConfig, adamw_init
 from ..runtime import StragglerDetector, plan_remesh
 from . import meshctx, steps
+from .mesh import axis_size, data_axes_of, make_mesh
 
-__all__ = ["main", "parser"]
+__all__ = ["main", "parser", "local_mesh"]
 
-# the local mesh: one device, as (data, model)
-LOCAL_MESH = {"data": 1, "model": 1}
+
+def local_mesh():
+    """The launchers' mesh: one device, as (data, model)."""
+    return make_mesh((1, 1), ("data", "model"))
 
 
 def _to_device(batch, dev: torch.device):
@@ -92,13 +100,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg = reduced(cfg)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh needs launch/mesh and sharding, which are "
-            "not ported yet (ROADMAP §1)")
+            "--production-mesh needs the production mesh and "
+            "launch/sharding, which are not ported yet (ROADMAP §1)")
     dev = resolve_device(args.device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     adamw = AdamWConfig()
+    mesh = local_mesh()
+    dp = data_axes_of(mesh)
 
-    with meshctx.use_mesh(None):
+    with meshctx.use_mesh(mesh, data_axes=dp):
         step_fn, _ = steps.make_train_step(
             cfg, dev, shape, adamw, lr_peak=args.lr,
             warmup=max(2, args.steps // 10), total_steps=args.steps)
@@ -141,11 +151,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          metadata={"stream": stream.state_dict(),
                                    "step": done})
             if args.simulate_loss and step == args.steps // 2:
-                survivors = LOCAL_MESH["data"] * LOCAL_MESH["model"] \
-                    - args.simulate_loss
+                survivors = mesh.size() - args.simulate_loss
                 plan = plan_remesh(
-                    survivors, model_parallel=LOCAL_MESH["model"],
-                    target_data_parallel=LOCAL_MESH["data"])
+                    survivors, model_parallel=axis_size(mesh, "model"),
+                    target_data_parallel=int(np.prod(
+                        [axis_size(mesh, a) for a in dp])) if dp else 1)
                 print(f"[elastic] lost {args.simulate_loss} chips -> "
                       f"mesh {plan.mesh_shape}, grad_accum x"
                       f"{plan.grad_accum} ({plan.reason}); restart from "

@@ -263,10 +263,14 @@ def attention_apply(cfg: ArchConfig, p: Params, x, *, causal: bool = True,
 
 def _check_seq_parallel() -> None:
     """The ``attn_seq_parallel`` knob reshards attention over a mesh's
-    model axis; without a mesh (one card) it changes nothing, as in the
-    reference.  Under a mesh it waits for the sharding slice."""
+    model axis; without a mesh, or on a model axis of one member (the
+    launchers' local mesh), it changes nothing, as in the reference.  Over
+    a wider model axis it waits for the sharding slice."""
     from ..launch import meshctx, tuning
-    if tuning.FLAGS["attn_seq_parallel"] and meshctx.current() is not None:
+    from ..launch.mesh import axis_size
+    ctx = meshctx.current()
+    if (tuning.FLAGS["attn_seq_parallel"] and ctx is not None
+            and axis_size(ctx.mesh, ctx.model_axis) > 1):
         raise NotImplementedError(
             "sequence-parallel attention over a mesh is not ported yet "
             "(ROADMAP §1, launch/mesh and sharding)")
@@ -470,16 +474,16 @@ def moe_apply(cfg: ArchConfig, p: Params, x) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Returns (output, aux_load_balance_loss).
 
-    The dense one-hot reference dispatch (smoke-test scale only — it
-    materializes ``(B, S, E, f)``).  Under an active mesh context the
-    reference takes its expert-parallel path (``moe_ep``), which is not
-    ported yet.
+    Under an active mesh context this dispatches to the expert-parallel
+    path (:mod:`repro_torch.models.moe_ep`: capacity packing and the
+    grouped expert GEMM); otherwise it uses the dense one-hot reference
+    dispatch (smoke-test scale only — it materializes ``(B, S, E, f)``).
     """
     from ..launch import meshctx
-    if meshctx.current() is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh (moe_ep) is not ported yet "
-            "(ROADMAP §1)")
+    ctx = meshctx.current()
+    if ctx is not None:
+        from .moe_ep import moe_ep_apply
+        return moe_ep_apply(cfg, p, x, ctx)
     m = cfg.moe
     logits = (x @ p["router"]).to(torch.float32)           # (B,S,E)
     if m.router_score == "sigmoid":

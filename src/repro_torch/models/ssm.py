@@ -180,9 +180,13 @@ def ssm_decode(cfg: ArchConfig, p: Params, u: torch.Tensor,
                           dim=-1)
 
     dt = softplus(dt_raw.to(torch.float32) + p["dt_bias"])[:, 0]
+    # the kernel takes A_log and D in fp32: at bf16 compute they are the
+    # cast's bf16 values, converted exactly
     y, h = ssd_decode_step(state["h"], x.reshape(bsz, nh, hp), dt,
-                           p["A_log"], B.reshape(bsz, g, s.d_state),
-                           C.reshape(bsz, g, s.d_state), p["D"])
+                           p["A_log"].to(torch.float32),
+                           B.reshape(bsz, g, s.d_state),
+                           C.reshape(bsz, g, s.d_state),
+                           p["D"].to(torch.float32))
     y = y.reshape(bsz, 1, d_in).to(u.dtype)
     y = rmsnorm(y * F.silu(z), p["norm_w"])
     out = y @ p["out_proj"]

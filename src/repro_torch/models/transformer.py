@@ -20,9 +20,10 @@ Counterpart of :mod:`repro.models.transformer`:
   states; the position is a host int that advances by one per step.
 
 Mixed precision as in the reference: master parameters in
-``param_dtype``, matrices cast to ``compute_dtype`` by
-:func:`cast_params`.  The reference casts inside every ``decode_step``;
-here the cast is made once per model (``decode_step`` takes cast
+``param_dtype``, matrices and every floating leaf of the blocks cast to
+``compute_dtype`` by :func:`cast_params`.  The reference casts inside
+every ``decode_step``; here the cast is made once per model
+(``decode_step`` takes cast
 parameters as they are), which gives the same numbers.  The cast is
 differentiable: :func:`loss_fn` casts under autograd, so the gradients
 reach the fp32 masters (``ParamTree.requires_grad_``).
@@ -128,17 +129,21 @@ class ParamTree(nn.Module):
 
 def cast_params(cfg: ArchConfig, params: ParamTree) -> ParamTree:
     """Mixed precision: master params stay in ``param_dtype``; matrices
-    are cast to ``compute_dtype`` (1-D params — norm scales, SSM A/D/dt —
-    stay full precision).  Returns ``params`` itself when it is already a
-    cast tree.  Differentiable: under autograd the cast leaves stay in
-    the graph of the masters (the leaves left as they are *are* the
-    masters)."""
+    are cast to ``compute_dtype``, 1-D params outside the blocks
+    (``final_norm``, ``enc_norm``, the MTP norm) stay full precision.  The
+    reference casts its tree with the blocks stacked, so a block's 1-D
+    params (norm scales, SSM A/D/dt_bias, conv bias) are 2-D there and
+    cast too: here every floating leaf under ``blocks`` / ``enc_blocks``
+    is cast whatever its rank.  Returns ``params`` itself when it is
+    already a cast tree.  Differentiable: under autograd the cast leaves
+    stay in the graph of the masters (the leaves left as they are *are*
+    the masters)."""
     _, cdtype = _dt(cfg)
     if params.compute_dtype == cdtype:
         return params
 
-    def cast(a: torch.Tensor) -> torch.Tensor:
-        if a.dim() < 2:
+    def cast(a: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        if a.dim() + stacked < 2:
             return a
         if a.dtype == torch.int8:
             # §Perf int8_weights knob: INT8 storage, dequant at use
@@ -148,7 +153,17 @@ def cast_params(cfg: ArchConfig, params: ParamTree) -> ParamTree:
             return a.to(cdtype)
         return a
 
-    out = params.map(cast)
+    cast_stacked = functools.partial(cast, stacked=True)
+    tree = {}
+    for k in params.keys():
+        v = params[k]
+        if isinstance(v, nn.ModuleList):    # blocks, enc_blocks: stacked
+            tree[k] = [bp.map(cast_stacked) for bp in v]
+        elif isinstance(v, ParamTree):
+            tree[k] = v.map(cast)
+        else:
+            tree[k] = cast(v)
+    out = ParamTree(tree)
     out.compute_dtype = cdtype
     return out
 

@@ -154,6 +154,7 @@ _TRAIN_MODULES = ["tree", "optim", "optim.adamw", "optim.schedule",
                   "checkpoint", "checkpoint.manager", "runtime",
                   "runtime.straggler", "runtime.fault", "runtime.elastic",
                   "launch.train", "kernels.cross_entropy", "kernels.adamw"]
+_MOE_MODULES = ["models.moe_ep", "kernels.grouped_gemm", "launch.mesh"]
 
 
 def test_imports_no_jax_no_repro():
@@ -162,7 +163,7 @@ def test_imports_no_jax_no_repro():
     walked = proc.stdout.split()
     assert int(walked[-1]) >= 60                  # every module walked
     for mod in (_SIM_MODULES + _EXPLORE_MODULES + _SYSTEM_SERVE_MODULES
-                + _LM_MODULES + _TRAIN_MODULES):
+                + _LM_MODULES + _TRAIN_MODULES + _MOE_MODULES):
         assert f"repro_torch.{mod}" in walked, mod
 
 

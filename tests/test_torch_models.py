@@ -27,6 +27,7 @@ from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
 from repro_torch.convert import from_jax_params
 from repro_torch.kernels import decode_attention as DA, ssd_decode as SD
 from repro_torch.launch import meshctx, tuning
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as L, model_zoo, ssm as S
 from repro_torch.models import transformer as T
 
@@ -362,6 +363,8 @@ def test_cast_params_once_and_idempotent(built):
     cast = T.cast_params(cfg, tparams)
     assert cast["embed"].dtype == torch.bfloat16
     assert cast["final_norm"]["w"].dtype == torch.float32   # 1-D stays
+    # a block's 1-D leaves are cast, as the reference's stacked ones are
+    assert cast["blocks"][0]["norm0"]["w"].dtype == torch.bfloat16
     assert T.cast_params(cfg, cast) is cast
     assert tparams["embed"].dtype == torch.float32
 
@@ -375,8 +378,15 @@ def test_model_zoo_and_mesh_context():
     logits = T.forward(cfg, params, batch)
     assert logits.shape == (2, 8, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+    # under the launchers' local mesh MoE takes moe_ep (capacity 1.25:
+    # nothing drops here), equal to the dense dispatch
+    mesh = make_mesh((1, 1), ("data", "model"))
+    with meshctx.use_mesh(mesh, data_axes=("data",)):
+        assert meshctx.current().mesh is mesh
+        torch.testing.assert_close(T.forward(cfg, params, batch), logits,
+                                   **TOL)
     with meshctx.use_mesh(object()):
         assert meshctx.current() is not None
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="not a mesh"):
             T.forward(cfg, params, batch)
     assert meshctx.current() is None

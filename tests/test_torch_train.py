@@ -16,8 +16,8 @@ configs; the two frameworks sum in other orders):
   1e-5 relative, every parameter within ``PARAM_TOL_LR`` * lr of the
   reference's (largest seen: 5.3e-4 * lr, mamba2);
 * the CLI's resume bit for bit (the CPU run is deterministic);
-* at bf16 compute, the loss within 1e-2 relative (see
-  ``test_loss_at_bf16_compute``).
+* at bf16 compute, the loss within ``BF16_LOSS_RTOL`` (3e-3) relative
+  (see ``test_loss_at_bf16_compute``).
 """
 
 import dataclasses
@@ -33,7 +33,7 @@ import torch
 
 from repro.configs import ARCHS, ShapeConfig as JShapeConfig, reduced
 from repro.data import make_batch as jmake_batch
-from repro.launch import steps as jsteps
+from repro.launch import meshctx as jmeshctx, steps as jsteps
 from repro.launch.mesh import make_mesh
 from repro.models import model_zoo as jzoo
 from repro.models import transformer as JT
@@ -45,7 +45,8 @@ from repro_torch.configs import (ARCHS as TARCHS, ShapeConfig,
                                  reduced as treduced)
 from repro_torch.convert import from_jax_opt_state, from_jax_params
 from repro_torch.kernels import adamw as KA, cross_entropy as KX
-from repro_torch.launch import steps, train, tuning
+from repro_torch.launch import meshctx, steps, train, tuning
+from repro_torch.launch.mesh import data_axes_of
 from repro_torch.models import model_zoo, transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -55,7 +56,7 @@ TOL = 2e-4
 BATCH, SEQ = 2, 32
 CPU = "cpu"
 PARAM_TOL_LR = 0.01          # a step moves a parameter by about lr
-BF16_LOSS_RTOL = 1e-2
+BF16_LOSS_RTOL = 3e-3
 TRAIN_ARCHS = ["phi4-mini-3.8b", "mamba2-780m", "olmoe-1b-7b",
                "deepseek-v3-671b"]
 
@@ -113,10 +114,14 @@ def test_loss_at_bf16_compute(name):
     """At the published compute dtype (bf16) the loss runs for every
     arch with finite gradients (mamba2's chunk scan once failed there on
     the conv bias's dtype) and stays within ``BF16_LOSS_RTOL`` of the
-    reference's: the port keeps a block's 1-D parameters in fp32 where
-    the reference's cast, which sees them stacked (2-D), rounds them to
-    bf16, and a top-k routing can flip on one rounding (jamba: 7.7e-3
-    relative; every other arch within 2e-4)."""
+    reference's.  The cast rounds a block's 1-D parameters to bf16 as the
+    reference's stacked cast does (before that repair jamba read 7.7e-3).
+    Largest gaps measured: jamba 2.86e-3 relative, every other arch within
+    1.7e-4 (olmoe 1.6e-4, whisper 1.6e-4, phi3 1.4e-4).  jamba's remainder:
+    XLA's and PyTorch's bf16 sigmoid / silu / exp round apart by one ulp
+    in about 30% of elements, and over its 7 SSD and 8 MoE sublayers
+    (4 experts, top 2, close router scores at random init) that flips
+    2-6 of 64 routings a layer (ROADMAP §3)."""
     cfg = dataclasses.replace(reduced(ARCHS[name]),
                               compute_dtype="bfloat16")
     params = jzoo.init(cfg)
@@ -234,6 +239,16 @@ def test_train_step_matches_reference(name):
     assert spec["tokens"] == ((BATCH, SEQ), torch.int32)
     assert spec["step"] == ((), torch.int32)
     KA.grad_norm.launches = KA.adamw_step.launches = 0
+    # both sides under their launchers' (1, 1) mesh: the MoE archs take
+    # moe_ep (shard_map + ragged_dot; the port's grouped GEMM)
+    tmesh = train.local_mesh()
+    with jmeshctx.use_mesh(mesh, data_axes=("data",)), \
+            meshctx.use_mesh(tmesh, data_axes=data_axes_of(tmesh)):
+        _three_steps(cfg, tcfg, jfn, tfn, params, opt, tp, to, lr_peak)
+    assert KA.grad_norm.launches == KA.adamw_step.launches == 0
+
+
+def _three_steps(cfg, tcfg, jfn, tfn, params, opt, tp, to, lr_peak):
     for s in range(3):
         b = jmake_batch(cfg, BATCH, SEQ, seed=0, step=s)
         params, opt, m = jfn(params, opt, {k: jnp.asarray(v)
@@ -255,7 +270,6 @@ def test_train_step_matches_reference(name):
         for k, p in got.items():
             err = float((p.detach() - want[k]).abs().max())
             assert err <= PARAM_TOL_LR * lr_peak, (s, k, err)
-    assert KA.grad_norm.launches == KA.adamw_step.launches == 0
 
 
 # ---------------------------------------------------------------------------
