@@ -8,8 +8,8 @@ script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, the grouped GEMM's among them, each in its own thread, all
-   started together) while Triton
+   source, five of them, the grouped GEMM's two among them, each in its
+   own thread, all started together) while Triton
    compiles the SSD step's variants phase 10 launches
    (:func:`build_triton_kernels`) and the training kernels' first
    variants (:func:`build_train_kernels`), timed as set-up;
@@ -202,14 +202,22 @@ script exits non-zero):
    4096; jamba-1.5's 16 experts, top 2, d 8192 / f 24576) and
    ``GG_EDGES`` (one group, empty groups whose dw must be exactly 0, rows
    past the groups' sum exactly 0, K and N off the tile, unaligned rows,
-   fp32), within ``GG_TOL`` of each case's rms, a planted fault (one row
-   moved into the next group) refused; each timed by graph replay beside
-   its bound ``max(2·hits·K·N / 989e12, bytes / 3.35e12)`` (the groups'
-   rows, the non-empty groups' weights and the output), the plain version
-   and ``torch._grouped_mm`` (the yardstick; the port never calls it);
-   then one ``moe_ep`` forward and backward at olmoe's widths under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync, 9
-   launches), held to the dense dispatch.
+   fp32, group edges off 128, a sum past M, buffers at and past the
+   stream route's threshold), within ``GG_TOL`` of each case's rms, and
+   on ``grouped_gemm_sm90.cu``'s routes (``wgmma``, ``stream``) of
+   ``ragged_dot_tiles_ref`` too; a planted fault (one row moved into the
+   next group) refused on both routes; each timed by graph replay beside
+   the ``tile`` route (``grouped_gemm.cu``, in turns), its bound
+   ``max(2·hits·K·N / 989e12, bytes / 3.35e12)`` (the groups' rows, the
+   non-empty groups' weights and the output), the plain version and
+   ``torch._grouped_mm`` (the yardstick; the port never calls it); a
+   graph-replay check (replays equal eager calls, after another shape's
+   call and new group sizes); the redesign's checks logged (``met`` or
+   ``MISSED``); then ``moe_ep`` forward and backward at olmoe's widths
+   under ``torch.cuda.set_sync_debug_mode("error")`` at B 4 x S 16 and
+   B 4 x S 1 (no host sync, 9 launches, none on the tile route), held to
+   the dense dispatch.  10b, 10c and 11c assert every bf16 grouped-GEMM
+   launch on ``grouped_gemm_sm90.cu``.
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
@@ -225,8 +233,9 @@ before the stream kernel); the decode attention at 10c's shape (B 4,
 cross-entropy's forward and backward at phi4-mini's 11c shape; the
 AdamW step (norm and every leaf's update) over phi4-mini's tree at 8
 layers with fp32 moments; the grouped GEMM's forward, dx and dw summed
-at olmoe's training buffer (up projection; ``decode_*``: the forward
-at its decode buffer).  The
+at olmoe's training buffer (up projection; ``previous_ms``: the same on
+the tile route, ``grouped_gemm.cu``; ``decode_*``: the forward at its
+decode buffer).  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -448,7 +457,11 @@ GG_CF = 1.25
 # edge cases, (label, dtype, M, K, N, group sizes): every row in one group;
 # empty groups (their dw exactly 0) and rows past the groups' sum (exactly
 # 0); K and N not multiples of the tile; unaligned rows (element loads);
-# fp32 operands (the FFMA tile)
+# fp32 operands (the FFMA tile); for grouped_gemm_sm90.cu: group edges off
+# 128 and a 1-row group, K and N multiples of 8 below one box, a sum past M
+# (cut at M), many small groups, and fwd buffers of GG_STREAM_M rows (the
+# stream route's last) and one more (the wgmma route's first)
+GG_STREAM_M = 192
 GG_EDGES = [("one group", "bfloat16", 200, 256, 384, [0, 0, 200, 0]),
             ("empty groups, rows past the sum", "bfloat16", 300, 512, 256,
              [0, 70, 0, 0, 90, 0, 0, 31]),
@@ -456,7 +469,18 @@ GG_EDGES = [("one group", "bfloat16", 200, 256, 384, [0, 0, 200, 0]),
              [50, 0, 61]),
             ("unaligned K, N", "bfloat16", 77, 147, 99, [20, 0, 40, 10]),
             ("fp32", "float32", 150, 256, 128, [60, 0, 70]),
-            ("fp32 unaligned", "float32", 45, 37, 53, [10, 0, 30])]
+            ("fp32 unaligned", "float32", 45, 37, 53, [10, 0, 30]),
+            ("edges off 128, a 1-row group", "bfloat16", 400, 136, 520,
+             [129, 1, 127, 0, 100]),
+            ("K, N multiples of 8 below a box", "bfloat16", 90, 8, 24,
+             [3, 40, 0, 20]),
+            ("a sum past M", "bfloat16", 100, 64, 72, [60, 70, 5]),
+            ("many small groups", "bfloat16", 1000, 64, 64,
+             [7] * 100 + [0] * 20),
+            ("M at the stream threshold", "bfloat16", GG_STREAM_M, 256, 264,
+             [30, 0, 50, 48, 60]),
+            ("M past the stream threshold", "bfloat16", GG_STREAM_M + 1, 256,
+             264, [30, 0, 50, 48, 60])]
 # kernel vs plain: |err| <= tol[0] * rms(plain) + tol[1] * |plain|.  bf16:
 # both round the fp32 sum once to bf16 (another order: one ulp, 2^-7 of
 # the value) and the rms share covers sums near zero; fp32: the order.
@@ -467,8 +491,16 @@ GG_TOL = {"bfloat16": (0.01, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 # torch.cuda.set_sync_debug_mode("error"); against the dense dispatch on
 # the card (nothing drops at tp 1), bf16 within GG_MOE_TOL (rms share,
 # relative): other rounding orders of a bf16 chain of products
-GG_MOE_TOKENS = (4, 16)
+GG_MOE_TOKENS = ((4, 16), (4, 1))
 GG_MOE_TOL = (0.1, 2.0 ** -6)
+# the checks the grouped GEMM's redesign is held to at phase 12's shapes
+# (reported, not raised): each of olmoe's training products within
+# GG_TRAIN_MIN of its bound and their sum GG_TRAIN_GAIN times faster than
+# the tile route; the decode forward faster than the tile route; the
+# weight-bound T 4 cases no slower than it within GG_SLOWER_MAX
+GG_TRAIN_MIN = 0.5
+GG_TRAIN_GAIN = 2.5
+GG_SLOWER_MAX = 0.03
 
 
 def log(*a):
@@ -2397,7 +2429,7 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
     diverged = torch.zeros(batch, dtype=torch.bool)
     flips, held = 0, 0
     mesh = local_mesh()
-    GG.ragged_dot.launches = 0
+    GG.reset_launches()
     for t in range(steps):
         tok = tokens[:, t:t + 1]
         r_dev, r_cpu = [], []
@@ -2429,6 +2461,8 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
         raise AssertionError(f"{name}: {flips} routing flips left {held} of "
                              f"{steps * batch} (step, row) pairs to hold")
     n_moe = moe_layers(cfg)
+    if dev.type == "cuda":
+        gg_routes_check(name, GG.launches_by_route, 3 * n_moe * steps)
     if dev.type == "cuda" and GG.ragged_dot.launches != 3 * n_moe * steps:
         raise AssertionError(f"{name}: {GG.ragged_dot.launches} grouped-GEMM "
                              f"launches, expected {3 * n_moe * steps}")
@@ -2438,6 +2472,7 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
             "argmax_agree": agree / (steps * batch),
             "routing_flips": flips, "pairs_held": held,
             "grouped_gemm_launches": GG.ragged_dot.launches,
+            "grouped_gemm_routes": dict(GG.launches_by_route),
             "device_s": t_dev, "cpu_s": t_cpu}
 
 
@@ -2537,11 +2572,12 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
             torch.cuda.reset_peak_memory_stats()
         DA.gqa_decode_attention.launches = 0
         SD.ssd_decode_step.launches = 0
-        GG.ragged_dot.launches = 0
+        GG.reset_launches()
         with knob():
             wall, text = run_lm_serve(argv)
         launched = (DA.gqa_decode_attention.launches,
                     SD.ssd_decode_step.launches, GG.ragged_dot.launches)
+        routes = dict(GG.launches_by_route)
         lines = text.strip().splitlines()
         m = re.fullmatch(r"prefill: (\S+)s  decode: (\S+)s \((\S+) tok/s\)",
                          lines[1])
@@ -2553,12 +2589,14 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
                "decode_s": float(m.group(2)), "tok_s": float(m.group(3)),
                "attention_launches": launched[0],
                "ssd_launches": launched[1],
-               "grouped_gemm_launches": launched[2], "lines": lines}
+               "grouped_gemm_launches": launched[2],
+               "grouped_gemm_routes": routes, "lines": lines}
         if on_card:
             want = (tokens * n_attn, tokens * n_ssm, 3 * tokens * n_moe)
             if launched != want:
                 raise AssertionError(f"{label}: launches {launched}, "
                                      f"expected {want}")
+            gg_routes_check(label, routes, want[2])
             row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         if profile and on_card:
             with knob():
@@ -2570,7 +2608,7 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
             log(f"  {line}")
         msg = (f"  {label}: {wall:.2f} s in all, launches attention "
                f"{launched[0]}, SSD {launched[1]}, grouped GEMM "
-               f"{launched[2]}")
+               f"{launched[2]} (by route {routes})")
         if "peak_gb" in row:
             msg += f", peak device memory {row['peak_gb']:.2f} GB"
         if "device_busy_ms" in row:
@@ -2955,7 +2993,8 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
         return float(m["loss"])
 
     KX.cross_entropy.launches = KA.grad_norm.launches = 0
-    KA.adamw_step.launches = GG.ragged_dot.launches = 0
+    KA.adamw_step.launches = 0
+    GG.reset_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2969,7 +3008,8 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "moe_layers": moe_layers(cfg),
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
-           "grouped_gemm_launches": launches[3]}
+           "grouped_gemm_launches": launches[3],
+           "grouped_gemm_routes": dict(GG.launches_by_route)}
     if trace_steps:
         t0 = time.perf_counter()
         wall, busy, top = device_profile(
@@ -2988,7 +3028,7 @@ def check_training(label: str, row: dict) -> None:
     configuration here has), 1 norm and one update launch a leaf a step,
     and 12 grouped-GEMM launches an MoE layer a step (3 forward, 3 in the
     block's recompute under remat, a dx and a dw for each of the 3 in the
-    backward)."""
+    backward), every one on ``grouped_gemm_sm90.cu`` (bf16)."""
     import math
     losses, steps = row["losses"], row["steps"]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
@@ -3003,6 +3043,7 @@ def check_training(label: str, row: dict) -> None:
         raise AssertionError(f"{label}: launches (cross_entropy, norm, "
                              f"update, grouped GEMM) {got}, expected "
                              f"{want}")
+    gg_routes_check(label, row["grouped_gemm_routes"], want[3])
 
 
 def train_full_phase(device, seed: int = 0) -> list:
@@ -3032,7 +3073,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                     str(TRAIN_FULL_SEQ), "--log-every", "1"]
             torch.cuda.reset_peak_memory_stats(dev)
             KX.cross_entropy.launches = KA.grad_norm.launches = 0
-            KA.adamw_step.launches = GG.ragged_dot.launches = 0
+            KA.adamw_step.launches = 0
+            GG.reset_launches()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lm_train.main(argv)
@@ -3050,6 +3092,7 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "norm_launches": KA.grad_norm.launches,
                    "update_launches": KA.adamw_step.launches,
                    "grouped_gemm_launches": GG.ragged_dot.launches,
+                   "grouped_gemm_routes": dict(GG.launches_by_route),
                    "moe_layers": moe_layers(cfg),
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
@@ -3076,7 +3119,8 @@ def train_full_phase(device, seed: int = 0) -> list:
             f"{row['peak_gb']:.2f} GB; launches cross_entropy "
             f"{row['xent_launches']}, norm {row['norm_launches']}, update "
             f"{row['update_launches']} ({row['leaves']} leaves), grouped "
-            f"GEMM {row['grouped_gemm_launches']}; "
+            f"GEMM {row['grouped_gemm_launches']} (by route "
+            f"{row['grouped_gemm_routes']}); "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
@@ -3224,6 +3268,38 @@ def gg_timing_ms(fn, out_bytes: int, device) -> float:
     return graph_ms(fn, REPS if out_bytes < 1e9 else 2)
 
 
+def gg_turns_ms(fn, other, out_bytes: int, device) -> tuple:
+    """``(ms of fn, ms of other)`` timed in turns, fn, other, other, fn,
+    each the faster of its two (``other`` None: fn's alone)."""
+    if other is None:
+        return gg_timing_ms(fn, out_bytes, device), None
+    a = gg_timing_ms(fn, out_bytes, device)
+    b = gg_timing_ms(other, out_bytes, device)
+    b = min(b, gg_timing_ms(other, out_bytes, device))
+    return min(a, gg_timing_ms(fn, out_bytes, device)), b
+
+
+def gg_routes_check(label, routes: dict, total: int) -> None:
+    """Every grouped-GEMM launch of a bf16 main-path run went to
+    ``grouped_gemm_sm90.cu`` (the "wgmma" and "stream" routes), none to
+    the ``tile`` route."""
+    if routes["tile"] or routes["wgmma"] + routes["stream"] != total:
+        raise AssertionError(f"{label}: grouped-GEMM launches by route "
+                             f"{routes}, expected all {total} on wgmma or "
+                             f"stream")
+
+
+def gg_launch(kernel, a, b, sizes) -> tuple:
+    """``(output, route)`` of one product through ``kernel`` (``GG._fwd``,
+    ``_dx`` or ``_dw``), the route read from the launch counters
+    ("plain" on the CPU)."""
+    from repro_torch.kernels import grouped_gemm as GG
+    before = dict(GG.launches_by_route)
+    got = kernel(a, b, sizes)
+    return got, next((r for r in GG.ROUTES
+                      if GG.launches_by_route[r] != before[r]), "plain")
+
+
 def gg_library(mode, a, b, sizes):
     """The yardstick ``torch._grouped_mm`` for the same product (bf16 on
     the card only), or ``None`` where this torch lacks it or refuses the
@@ -3232,6 +3308,11 @@ def gg_library(mode, a, b, sizes):
     from repro_torch.kernels import grouped_gemm as GG
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None or a.dtype != torch.bfloat16 or not a.is_cuda:
+        return None
+    if bool((sizes < 0).any()) or int(sizes.sum()) > a.shape[0]:
+        # its offsets must rise and stay in the buffer (a device-side
+        # assert otherwise, which ends the process's CUDA context)
+        log("    torch._grouped_mm n/a: group offsets past the buffer")
         return None
     offs = torch.cumsum(sizes.to(torch.int64), 0).to(torch.int32)
     if mode == GG.FWD:
@@ -3250,8 +3331,10 @@ def gg_library(mode, a, b, sizes):
 
 
 def gg_products(label, x, w, dy, sizes, hits, device, tol, rows) -> None:
-    """Forward, dx and dw of one case against the plain versions, timed;
-    each a row appended to ``rows``."""
+    """Forward, dx and dw of one case against the plain versions, and on
+    grouped_gemm_sm90.cu's routes against ``ragged_dot_tiles_ref`` too
+    (its algorithm); each timed beside the tile route on the same
+    operands (``previous_ms``); each a row appended to ``rows``."""
     import torch
     from repro_torch.kernels import grouped_gemm as GG
     m, k = x.shape
@@ -3259,22 +3342,40 @@ def gg_products(label, x, w, dy, sizes, hits, device, tol, rows) -> None:
     nonempty = int((sizes > 0).sum())
     elem = x.element_size()
     peak = PEAK_BF16_OPS if x.dtype == torch.bfloat16 else PEAK_F32_OPS
-    prods = [(GG.FWD, "fwd", x, w, GG.ragged_dot_ref, m * n),
-             (GG.DX, "dx", dy, w, GG.ragged_dot_dx_ref, m * k),
-             (GG.DW, "dw", x, dy, GG.ragged_dot_dw_ref, groups * k * n)]
-    for mode, name, a, b, ref, out_elems in prods:
+    prods = [(GG.FWD, "fwd", x, w, GG.ragged_dot_ref, m * n, n),
+             (GG.DX, "dx", dy, w, GG.ragged_dot_dx_ref, m * k, k),
+             (GG.DW, "dw", x, dy, GG.ragged_dot_dw_ref, groups * k * n, n)]
+    for mode, name, a, b, ref, out_elems, cols in prods:
         # on the card the kernel; on the CPU (a rehearsal) the plain version
         kernel = {GG.FWD: GG._fwd, GG.DX: GG._dx, GG.DW: GG._dw}[mode]
-        got = kernel(a, b, sizes)
-        want = ref(a, b, sizes)
+        planned = GG.route(mode, a.dtype, m, k, n,
+                           GG.operands_aligned(a, b))
+        got, route = gg_launch(kernel, a, b, sizes)
         if a.is_cuda:
             torch.cuda.synchronize()
+            if route != planned:
+                raise AssertionError(f"grouped GEMM {label} {name}: launched "
+                                     f"on {route}, planned {planned}")
+        want = ref(a, b, sizes)
         err, rel, _ = gg_check(f"{label} {name}", got, want, sizes, mode, tol)
-        del got, want
+        del want
+        t_rel = None
+        if planned in ("wgmma", "stream"):
+            bm, bn = ((GG.WG_BM, GG.WG_BN) if planned == "wgmma"
+                      else (GG.STREAM_BM, GG.STREAM_BN))
+            tiles = GG.ragged_dot_tiles_ref(mode, a, b, sizes, bm, bn)
+            _, t_rel, _ = gg_check(f"{label} {name} (tiles)", got, tiles,
+                                   sizes, mode, tol)
+            del tiles
+        del got
         b_ms, b_by = gg_bound(mode, hits, m, k, n, groups, nonempty, elem,
                               peak)
-        ms = gg_timing_ms(lambda: kernel(a, b, sizes), out_elems * elem,
-                          device)
+        tile = None
+        if a.is_cuda and route != "tile":
+            tile = lambda: GG.ragged_dot_cuda(mode, a, b, sizes,  # noqa: E731
+                                              route="tile")
+        ms, prev_ms = gg_turns_ms(lambda: kernel(a, b, sizes), tile,
+                                  out_elems * elem, device)
         plain_ms = cuda_ms(lambda: ref(a, b, sizes), 3) if a.is_cuda \
             else dev_ms(lambda: ref(a, b, sizes), device)
         lib = gg_library(mode, a, b, sizes)
@@ -3282,14 +3383,20 @@ def gg_products(label, x, w, dy, sizes, hits, device, tol, rows) -> None:
                                                       device)
         row = {"case": label, "product": name, "dtype": str(x.dtype)[6:],
                "M": m, "K": k, "N": n, "groups": groups,
-               "nonempty": nonempty, "hits": hits, "max_abs_err": err,
-               "err_over_rms": rel, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+               "nonempty": nonempty, "hits": hits, "route": route,
+               "max_abs_err": err, "err_over_rms": rel,
+               "tiles_err_over_rms": t_rel, "ms": ms, "previous_ms": prev_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms}
         rows.append(row)
         log(f"  {label} {name}: M {m} K {k} N {n}, {nonempty}/{groups} "
-            f"groups, {hits} rows: max |err| {err:.3g} ({rel:.4f} of the "
-            f"rms); kernel {ms:.4f} ms, bound {b_ms:.4f} ({b_by}, "
-            f"{100 * b_ms / ms:.0f}%), plain {plain_ms:.4f}, _grouped_mm "
+            f"groups, {hits} rows, route {route}: max |err| {err:.3g} "
+            f"({rel:.4f} of the rms"
+            + ("" if t_rel is None else f"; tiles {t_rel:.4f}")
+            + f"); kernel {ms:.4f} ms, bound {b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / ms:.0f}%), tile route "
+            + ("n/a" if prev_ms is None else f"{prev_ms:.4f}")
+            + f", plain {plain_ms:.4f}, _grouped_mm "
             + ("n/a" if lib_ms is None else f"{lib_ms:.4f}"))
 
 
@@ -3304,23 +3411,93 @@ def gg_fault(x, w, dy, sizes, tol) -> None:
     bad[g + 1] += 1
     for mode, a, b, ref in ((GG.FWD, x, w, GG.ragged_dot_ref),
                             (GG.DW, x, dy, GG.ragged_dot_dw_ref)):
-        got = (GG._fwd if mode == GG.FWD else GG._dw)(a, b, bad)
+        got, route = gg_launch(GG._fwd if mode == GG.FWD else GG._dw, a, b,
+                               bad)
         _, rel, ok = gg_check("planted fault", got, ref(a, b, sizes), sizes,
                               mode, tol, fault=True)
         if ok:
             raise AssertionError(f"grouped GEMM: the planted fault (mode "
-                                 f"{mode}) passed ({rel:.4f} of the rms)")
-        log(f"  planted fault (one row into group {g + 1}), mode {mode}: "
-            f"{rel:.3f} of the rms, refused")
+                                 f"{mode}, route {route}) passed ({rel:.4f} "
+                                 f"of the rms)")
+        log(f"  planted fault (one row into group {g + 1}), mode {mode}, "
+            f"route {route}: {rel:.3f} of the rms, refused")
 
 
-def moe_no_sync_check(device, seed: int = 0) -> dict:
+def gg_graph_check(device, seed: int = 0) -> dict:
+    """grouped_gemm_sm90.cu under CUDA-graph capture: forward, dx and dw
+    at olmoe's widths on a 5,120-row buffer (the wgmma route) and the
+    decode buffer (the forward on the stream route) captured in one
+    graph; each replay must equal the eager calls bit for bit (the outputs
+    set to NaN before it), after another shape's call between replays,
+    and after new group sizes are written into the captured tensors (the
+    kernels read them on the device at every replay)."""
+    import torch
+    from repro_torch.kernels import grouped_gemm as GG
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    dgen = torch.Generator(dev).manual_seed(seed + 1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=dgen, device=dev,
+                           dtype=torch.bfloat16) * scale
+
+    calls = []
+    for tokens in (512, 4):
+        sizes, _, cap = gg_group_sizes(64, tokens, 8, gen, dev)
+        x, dy = randn(cap, 2048), randn(cap, 1024)
+        w = randn(64, 2048, 1024, scale=2048 ** -0.5)
+        calls += [(GG.FWD, x, w, sizes), (GG.DX, dy, w, sizes),
+                  (GG.DW, x, dy, sizes)]
+
+    def eager():
+        return [GG.ragged_dot_cuda(*c) for c in calls]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    GG.reset_launches()
+    with torch.cuda.graph(graph):
+        outs = [GG.ragged_dot_cuda(*c) for c in calls]
+    routes = dict(GG.launches_by_route)
+
+    def replay_equal(label):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        want = eager()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, e) for o, e in zip(outs, want)):
+            raise AssertionError(f"grouped GEMM graph replay {label}: "
+                                 f"differs from the eager calls")
+
+    replay_equal("first")
+    GG.ragged_dot_cuda(GG.FWD, randn(300, 256), randn(5, 256, 264),
+                       torch.tensor([60, 0, 100, 40, 50], dtype=torch.int32,
+                                    device=dev))
+    replay_equal("after another shape")
+    for _, _, _, sizes in calls[::3]:
+        sizes.copy_(sizes.flip(0))
+    replay_equal("after new group sizes")
+    del graph
+    if routes != {"wgmma": 5, "stream": 1, "tile": 0}:
+        raise AssertionError(f"grouped GEMM graph check: captured launches "
+                             f"by route {routes}")
+    log(f"  graph replay: {len(calls)} captured products (routes {routes}) "
+        f"equal the eager calls bit for bit, after another shape's call "
+        f"and after new group sizes")
+    return {"captured": len(calls), "routes": routes}
+
+
+def moe_no_sync_check(device, seed: int = 0, tokens=(4, 16)) -> dict:
     """One ``moe_ep`` forward and backward at olmoe-1b-7b's widths (one
-    layer's MoE, bf16, ``GG_MOE_TOKENS``) under the local mesh with
+    layer's MoE, bf16, ``tokens`` = (B, S)) under the local mesh with
     ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises.
     The grouped GEMM launches 9 times (3 forward, a dx and a dw each
-    backward); output and x gradient against the dense dispatch (no
-    mesh) on the same device."""
+    backward), none on the tile route; output and x gradient against the
+    dense dispatch (no mesh) on the same device."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import grouped_gemm as GG
@@ -3334,7 +3511,7 @@ def moe_no_sync_check(device, seed: int = 0) -> dict:
     gen = torch.Generator(dev).manual_seed(seed)
     p = {k: v.requires_grad_(True)
          for k, v in L.moe_init(cfg, gen, torch.bfloat16).items()}
-    b, s = GG_MOE_TOKENS
+    b, s = tokens
     x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
                     dtype=torch.float32).to(torch.bfloat16).requires_grad_(True)
     cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
@@ -3350,16 +3527,19 @@ def moe_no_sync_check(device, seed: int = 0) -> dict:
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
-    GG.ragged_dot.launches = 0
+    GG.reset_launches()
     try:
         out, grads = run(mesh)
     finally:
         if on_card:
             torch.cuda.set_sync_debug_mode(0)
     launched = GG.ragged_dot.launches
-    if on_card and launched != 9:
-        raise AssertionError(f"moe_ep: {launched} grouped-GEMM launches, "
-                             f"expected 9")
+    routes = dict(GG.launches_by_route)
+    if on_card:
+        if launched != 9:
+            raise AssertionError(f"moe_ep: {launched} grouped-GEMM launches, "
+                                 f"expected 9")
+        gg_routes_check(f"moe_ep B {b} x S {s}", routes, 9)
     dense, dgrads = run(None)
     o_err, o_rel, o_ok = scaled_within(out.detach(), dense.detach(),
                                        *GG_MOE_TOL)
@@ -3370,10 +3550,43 @@ def moe_no_sync_check(device, seed: int = 0) -> dict:
                              f"{o_rel:.4f}, dx {x_rel:.4f} of the rms")
     log(f"  moe_ep forward + backward at olmoe's widths, B {b} x S {s}, "
         f"under set_sync_debug_mode('error'): no host sync, {launched} "
-        f"grouped-GEMM launches; against the dense dispatch out "
-        f"{o_rel:.4f}, dx {x_rel:.4f} of the rms (limit {GG_MOE_TOL})")
-    return {"launches": launched, "out_over_rms": o_rel,
-            "dx_over_rms": x_rel}
+        f"grouped-GEMM launches (by route {routes}); against the dense "
+        f"dispatch out {o_rel:.4f}, dx {x_rel:.4f} of the rms (limit "
+        f"{GG_MOE_TOL})")
+    return {"tokens": list(tokens), "launches": launched, "routes": routes,
+            "out_over_rms": o_rel, "dx_over_rms": x_rel}
+
+
+def gg_criteria(rows) -> dict:
+    """The checks the redesign is held to (``GG_TRAIN_MIN``,
+    ``GG_TRAIN_GAIN``, ``GG_SLOWER_MAX``), each ``(value, met)``, from
+    phase 12's rows; logged, not raised."""
+    def row(case, product):
+        return next(r for r in rows if r["case"] == case
+                    and r["product"] == product)
+
+    train = [row("olmoe train B 4 x S 2048 up", p)
+             for p in ("fwd", "dx", "dw")]
+    out = {}
+    for r in train:
+        share = r["bound_ms"] / r["ms"]
+        out[f"train {r['product']} share of bound"] = (
+            share, share >= GG_TRAIN_MIN)
+    gain = sum(r["previous_ms"] for r in train) / sum(r["ms"] for r in train)
+    out["train fwd + dx + dw, tile route over kernel"] = (
+        gain, gain >= GG_TRAIN_GAIN)
+    dec = row("olmoe decode B 4 up", "fwd")
+    out["decode fwd, tile route over kernel"] = (
+        dec["previous_ms"] / dec["ms"], dec["ms"] < dec["previous_ms"])
+    for case in ("deepseek-v3 T 4 up", "jamba-1.5 T 4 up"):
+        for p in ("fwd", "dx", "dw"):
+            r = row(case, p)
+            slower = r["ms"] / r["previous_ms"] - 1
+            out[f"{case} {p}, slower than the tile route by"] = (
+                slower, slower <= GG_SLOWER_MAX)
+    for k, (v, met) in out.items():
+        log(f"  {k}: {v:.3f} ({'met' if met else 'MISSED'})")
+    return {k: {"value": v, "met": met} for k, (v, met) in out.items()}
 
 
 def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
@@ -3381,11 +3594,19 @@ def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
     """Phase 12: the grouped expert GEMM against its plain version on the
     card — forward, dx and dw at ``cases`` (olmoe's decode and training
     capacity buffers, deepseek-v3's and jamba's widths) and the
-    ``edges``, within ``GG_TOL`` of each case's rms, with a planted fault
-    refused; each product timed (graph replay) beside its bound, the
-    plain version and ``torch._grouped_mm``; then the no-host-sync check
-    of ``moe_ep`` (:func:`moe_no_sync_check`)."""
+    ``edges``, within ``GG_TOL`` of each case's rms (and, on
+    grouped_gemm_sm90.cu's routes, of ``ragged_dot_tiles_ref``), with a
+    planted fault refused on the wgmma and stream routes; each product
+    timed (graph replay) beside the tile route, its bound, the plain
+    version and ``torch._grouped_mm``; a graph-replay check
+    (:func:`gg_graph_check`); then the no-host-sync check of ``moe_ep``
+    (:func:`moe_no_sync_check`) at ``GG_MOE_TOKENS``."""
     import torch
+    from repro_torch.kernels import grouped_gemm as GG
+    if GG.STREAM_MAX_M != GG_STREAM_M:
+        raise AssertionError(f"the stream route's threshold "
+                             f"{GG.STREAM_MAX_M}, GG_EDGES hold "
+                             f"{GG_STREAM_M}")
     dev = torch.device(device)
     gen = torch.Generator().manual_seed(seed)
     # operands drawn on the device: deepseek-v3's weights are 3.8e9 values
@@ -3406,7 +3627,7 @@ def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
             dy = randn(cap, n)
             gg_products(f"{label} {part}", x, w, dy, sizes, hits, dev, tol,
                         rows)
-            if label.startswith("olmoe train") and part == "up":
+            if label.startswith("olmoe") and part == "up":
                 gg_fault(x, w, dy, sizes, tol)
             del x, w, dy
             if dev.type == "cuda":
@@ -3414,12 +3635,17 @@ def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
     for label, dtype, m, k, n, sizes in edges:
         dt = getattr(torch, dtype)
         sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
-        hits = min(int(sz.sum()), m)
+        hits = min(int(sz.clamp(min=0).sum()), m)
         gg_products(label, randn(m, k, dtype=dt),
                     randn(len(sizes), k, n, scale=k ** -0.5, dtype=dt),
                     randn(m, n, dtype=dt), sz, hits, dev, GG_TOL[dtype],
                     rows)
-    return {"rows": rows, "moe": moe_no_sync_check(dev, seed)}
+    out = {"rows": rows}
+    if dev.type == "cuda":
+        out["graph"] = gg_graph_check(dev, seed)
+        out["criteria"] = gg_criteria(rows)
+    out["moe"] = [moe_no_sync_check(dev, seed, t) for t in GG_MOE_TOKENS]
+    return out
 
 
 def main() -> int:
@@ -3466,9 +3692,10 @@ def main() -> int:
     t0 = time.perf_counter()
     from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels import grouped_gemm as GG
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
-                 pool.submit(I8.build_library), pool.submit(GG.build_library)]
+                 pool.submit(I8.build_library), pool.submit(GG.build_library),
+                 pool.submit(GG.build_sm90_library)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -3906,6 +4133,9 @@ def main() -> int:
                          product=prod) for prod in ("fwd", "dx", "dw")]
     gg_dec = main_row(gg_rows, case="olmoe decode B 4 up", product="fwd")
     gg_lib = [r["library_ms"] for r in gg_train]
+    gg_routes = {r: sum(row["grouped_gemm_routes"][r]
+                        for row in runs + train_full)
+                 for r in ("wgmma", "stream", "tile")}
     xent = main_row(train_k["cross_entropy"], arch="phi4-mini-3.8b")
     aw = main_row(train_k["adamw_step"], moments="float32")
     kernels += [{
@@ -3940,10 +4170,12 @@ def main() -> int:
     }, {
         "name": "grouped_gemm",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+        "source": "src/repro_torch/kernels/csrc/grouped_gemm_sm90.cu",
         "replaces": "src/repro/models/moe_ep.py:114",
         "launches": sum(r["grouped_gemm_launches"] for r in runs)
         + sum(r["grouped_gemm_launches"] for r in train_full),
+        # 10c's and 11c's launches by route: every one on the new source
+        "launches_by_route": gg_routes,
         "max_abs_err": max(r["max_abs_err"] for r in gg_rows),
         # forward + dx + dw of olmoe's up projection at 11c's shape (65,536
         # hits in a capacity buffer of 81,920 rows, 64 experts)
@@ -3953,8 +4185,13 @@ def main() -> int:
         "bound_by": max(("operations", "bytes"), key=lambda by: sum(
             r["bound_ms"] for r in gg_train if r["bound_by"] == by)),
         "library_ms": None if None in gg_lib else sum(gg_lib),
-        # the forward at 10c's decode shape (32 hits, cap 40)
+        # the same products on grouped_gemm.cu's tiles (the "tile" route),
+        # timed in turns with the new one
+        "previous_ms": sum(r["previous_ms"] for r in gg_train),
+        # the forward at 10c's decode shape (32 hits, cap 40; the stream
+        # route)
         "decode_ms": gg_dec["ms"],
+        "decode_previous_ms": gg_dec["previous_ms"],
         "decode_bound_ms": gg_dec["bound_ms"],
         "decode_plain_ms": gg_dec["plain_ms"],
         "decode_library_ms": gg_dec["library_ms"],
@@ -3967,8 +4204,9 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention and "
-        "grouped_gemm (cuda, sm_90a), ssd_decode_step, cross_entropy and "
-        "adamw_step (triton)")
+        "grouped_gemm (cuda, sm_90a; grouped_gemm_sm90.cu on every bf16 "
+        "launch, grouped_gemm.cu's tiles for fp32), ssd_decode_step, "
+        "cross_entropy and adamw_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

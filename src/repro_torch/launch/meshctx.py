@@ -5,9 +5,12 @@ so layers that have a distributed implementation (MoE expert parallelism)
 can pick it up without threading mesh objects through every call.
 
 Counterpart of :mod:`repro.launch.meshctx`.  The context holds a
-``torch.distributed`` ``DeviceMesh`` (or any object standing for one);
-on one card it is ``None``, and the layers take their single-device
-paths.
+``torch.distributed`` ``DeviceMesh`` or, on one process with no process
+group, the :class:`~repro_torch.launch.mesh.LocalMesh` of shape
+``(1, 1)`` that both launchers enter (``launch/mesh.py``); under either,
+``moe_apply`` dispatches to expert-parallel ``moe_ep``.  It is ``None``
+only outside a launcher (no mesh entered), and the layers then take
+their single-device paths (the dense MoE dispatch).
 """
 
 from __future__ import annotations
