@@ -219,10 +219,33 @@ script exits non-zero):
    the dense dispatch.  10b, 10c and 11c assert every bf16 grouped-GEMM
    launch on ``grouped_gemm_sm90.cu``.
 
+13. the prefill step and the dry run (after phase 11): the dry-run CLI
+   (``python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape
+   prefill_32k --out build/dryrun.json`` on the fake (16, 16) mesh),
+   ``cost_cell`` on the local (1, 1) mesh for 13a's shapes and ``python
+   -m repro_torch.launch.serve --production-mesh`` start on the host in
+   the background, away from the card; (a) phi4-mini-3.8b at full depth
+   through ``steps.make_prefill_step`` at B 4 x S 2048 (naive attention)
+   and B 1 x S 32768 (the blockwise loop): finite last-token logits, the
+   median host ms of the timed calls, prefill tokens/s, peak device
+   memory (at S 32768 under the fp32 parameters, their bf16 cast and the
+   26.2 GB of (1, 32768, 200064) fp32 logits the last-token head
+   avoids), one traced call's device-busy ms; (b) olmoe-1b-7b at full
+   depth, B 4 x S 2048, under the local mesh: 48 grouped-GEMM launches,
+   every one on the wgmma route; (c) phi4-mini and olmoe at 2 layers,
+   full width, B 4 x S 64: the prefill step's last-token logits on the
+   card against the prompt stepped through the decode step on the card
+   and against the prefill step on the CPU (``LOGIT_TOL``, MoE rows that
+   route differently left out, ``MOE_CHECKED_MIN`` held); (d) each 13a
+   call's device-busy time at least its cell's H100 ``compute_s``, the
+   CLI's cell ``ok`` with its roofline terms; (e) ``plan_parallelism``
+   on the H100 preset at train_4k for every arch, and ``--production-mesh``
+   refused with the 256-rank message.
+
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 10d's, the decode kernels' 10c's, the training kernels' 11c's, the
-grouped GEMM's 10c's and 11c's.  Each record's times are device times
+grouped GEMM's 10c's, 11c's and 13b's.  Each record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
 cold from HBM, as a decode step reads it (``previous_ms``: the tile
@@ -501,6 +524,42 @@ GG_MOE_TOL = (0.1, 2.0 ** -6)
 GG_TRAIN_MIN = 0.5
 GG_TRAIN_GAIN = 2.5
 GG_SLOWER_MAX = 0.03
+# phase 13: the prefill step (launch.steps.make_prefill_step) and the dry
+# run (launch.dryrun) against the card.  13a: phi4-mini at full depth,
+# (batch, seq, timed calls, a warm-up call first, layers of the traced
+# call) on the naive attention path and on the blockwise one (prefill_32k's
+# sequence at batch 1).  The blockwise loop is plain PyTorch: about 1.8
+# million launches a call (45-53 s at full depth on an H100 80GB HBM3 at
+# 700 W), and a profiler trace of them takes minutes to read back; so
+# S 32768 times one full-depth call and traces a call of its first layer
+# (13d holds that trace against the one-layer cell).  The peak at S 32768
+# must stay below the fp32 parameters, their bf16 cast and the (1, 32768,
+# 200064) fp32 logits the last-token head avoids (PREFILL_LOGITS_BYTES)
+PREFILL_ARCH = "phi4-mini-3.8b"
+PREFILL_SHAPES = [(4, 2048, 3, True, None), (1, 32768, 1, False, 1)]
+PREFILL_LOGITS_BYTES = 1 * 32768 * 200064 * 4
+# 13b: olmoe-1b-7b at full depth under the local mesh: 3 grouped-GEMM
+# launches an MoE layer, every one on the wgmma route
+PREFILL_MOE = ("olmoe-1b-7b", 4, 2048)
+# 13c: 2 layers at full width, B 4 x S 64: the prefill step's last-token
+# logits on the card against the prompt stepped through the decode step
+# on the card and against the prefill step on the CPU, LOGIT_TOL of the
+# range, an MoE row held only if no token of it routes differently
+# (MOE_CHECKED_MIN of the rows held); olmoe's capacity factor raised to
+# its experts over its top-k, so neither prefill (256 tokens a buffer)
+# nor decode (4) drops a token: a drop changes the result by definition.
+# (arch, layers, compute dtype): olmoe in fp32, because at bf16 its top-8
+# of 64 router flipped in every row between the 256-token prefill and the
+# 4-token decode steps (4 of 4 rows on the H100): a row's last logits
+# depend on every earlier position's routing
+PREFILL_AGREE = (("phi4-mini-3.8b", 2, None), ("olmoe-1b-7b", 2, "float32"))
+PREFILL_AGREE_BATCH, PREFILL_AGREE_SEQ = 4, 64
+# 13d: the dry run's cells: cost_cell on the local (1, 1) mesh for 13a's
+# shapes (each call's device-busy time must be at least its H100
+# compute_s), and the CLI on the fake (16, 16) mesh
+DRYRUN_CLI = ["--arch", "phi4-mini-3.8b", "--shape", "prefill_32k",
+              "--out", "build/dryrun.json", "--force"]
+DRYRUN_TIMEOUT = 400
 
 
 def log(*a):
@@ -3648,6 +3707,424 @@ def grouped_gemm_phase(device, seed: int = 0, cases=GG_CASES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the prefill step and the dry run
+# ---------------------------------------------------------------------------
+
+_COST_CELLS = r"""
+import json, sys
+sys.modules["jax"] = None
+from repro_torch.configs import ARCHS, ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.configs.base import depth_variant
+out = []
+for b, s, layers in json.loads(sys.argv[2]):
+    cfg = ARCHS[sys.argv[1]]
+    rec = dryrun.cost_cell(cfg if layers is None else
+                           depth_variant(cfg, layers),
+                           ShapeConfig("prefill", s, b, "prefill"),
+                           make_mesh((1, 1), ("data", "model")))
+    rec["layers"] = layers
+    out.append(rec)
+print(json.dumps(out))
+"""
+
+
+def dryrun_start() -> dict:
+    """Phase 13's host-only runs, started together and in the background
+    (none touches the card: ``CUDA_VISIBLE_DEVICES`` is empty): the
+    dry-run CLI on the fake (16, 16) mesh, ``cost_cell`` on the local
+    (1, 1) mesh for 13a's shapes, and ``python -m
+    repro_torch.launch.serve --production-mesh``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    (ROOT / "build").mkdir(exist_ok=True)
+    # the traced calls' cells, then each shape at full depth
+    shapes = json.dumps([[b, s, layers] for b, s, _, _, layers
+                         in PREFILL_SHAPES]
+                        + [[b, s, None] for b, s, _, _, layers
+                           in PREFILL_SHAPES if layers is not None])
+    cmds = {
+        "cli": [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        + DRYRUN_CLI,
+        "cells": [sys.executable, "-c", _COST_CELLS, PREFILL_ARCH, shapes],
+        "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                  "--production-mesh"]}
+    return {k: (subprocess.Popen(c, cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+                time.perf_counter())
+            for k, c in cmds.items()}
+
+
+def dryrun_collect(procs: dict) -> dict:
+    """``{name: (returncode, stdout, stderr, seconds)}`` of
+    :func:`dryrun_start`'s processes, each waited for (killed at
+    ``DRYRUN_TIMEOUT``)."""
+    out = {}
+    try:
+        for k, (p, t0) in procs.items():
+            so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+            out[k] = (p.returncode, so, se, time.perf_counter() - t0)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return out
+
+
+def prefill_timed(fn, params, batch, reps: int, warm: bool,
+                  device) -> tuple:
+    """``(logits, [host ms of each call], peak GB)``: a warm-up call when
+    ``warm``, then ``reps`` calls timed by host clock between device
+    syncs, the peak device memory over the timed calls."""
+    import torch
+    if warm:
+        fn(params, batch)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    logits = None
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        logits = fn(params, batch)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return logits, ms, torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def prefill_full_phase(device, seed: int = 0) -> list:
+    """Phase 13a: phi4-mini-3.8b at full depth (32 layers) through
+    ``steps.make_prefill_step`` at ``PREFILL_SHAPES`` (random weights
+    from ``seed``, the launchers' local mesh): last-token logits finite,
+    the median host ms of the timed calls, prefill tokens/s, the peak
+    device memory, and one ``torch.profiler`` trace of a call at the
+    shape's traced depth (its device-busy ms).  At S 32768 the peak must
+    stay under the fp32 parameters, their bf16 cast and
+    ``PREFILL_LOGITS_BYTES``."""
+    import statistics
+    import torch
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.configs.base import depth_variant
+    from repro_torch.data import make_batch
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import transformer as T
+
+    dev = torch.device(device)
+    cfg = ARCHS[PREFILL_ARCH]
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    n_params = sum(t.numel() for t in params.parameters())
+    rows = []
+    mesh = local_mesh()
+    with meshctx.use_mesh(mesh, data_axes=("data",)):
+        for b, s, reps, warm, traced_layers in PREFILL_SHAPES:
+            t_start = time.perf_counter()
+            fn, _ = lm_steps.make_prefill_step(
+                cfg, dev, ShapeConfig("prefill", s, b, "prefill"))
+            batch = {"tokens": torch.from_numpy(make_batch(
+                cfg, b, s, seed=seed, step=0)["tokens"]).to(dev)}
+            logits, ms, peak = prefill_timed(fn, params, batch, reps, warm,
+                                             dev)
+            if tuple(logits.shape) != (b, cfg.vocab) or \
+                    logits.dtype != torch.float32 or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"prefill B {b} S {s}: logits "
+                                     f"{tuple(logits.shape)} {logits.dtype}")
+            if traced_layers is None:
+                traced, tfn = params, fn
+            else:
+                # the first blocks of the same parameters
+                traced = T.ParamTree({k: (list(params[k])[:traced_layers]
+                                          if k == "blocks" else params[k])
+                                      for k in params.keys()})
+                tfn, _ = lm_steps.make_prefill_step(
+                    depth_variant(cfg, traced_layers), dev,
+                    ShapeConfig("prefill", s, b, "prefill"))
+            wall, busy, top = device_profile(lambda: tfn(traced, batch),
+                                             cpu=False)
+            med = statistics.median(ms)
+            row = {"arch": PREFILL_ARCH, "layers": cfg.n_layers, "batch": b,
+                   "seq": s, "traced_layers": traced_layers or cfg.n_layers,
+                   "calls_ms": ms, "median_ms": med,
+                   "tok_s": b * s / (med / 1e3), "peak_gb": peak,
+                   "profiled_wall_ms": wall, "device_busy_ms": busy,
+                   "top_device_events": top,
+                   "wall_s": time.perf_counter() - t_start}
+            if s == 32768:
+                limit = n_params * (4 + 2) + PREFILL_LOGITS_BYTES
+                row["peak_limit_gb"] = limit / 1e9
+                if peak * 1e9 >= limit:
+                    raise AssertionError(f"prefill S {s}: peak {peak:.2f} GB"
+                                         f" >= {limit / 1e9:.2f} GB")
+            rows.append(row)
+            log(f"  {PREFILL_ARCH} x{cfg.n_layers} layers, B {b} x S {s}: "
+                f"{', '.join(f'{m:.1f}' for m in ms)} ms (median {med:.1f} "
+                f"ms, {row['tok_s']:.0f} prefill tok/s), peak device memory "
+                f"{peak:.2f} GB"
+                + (f" (limit {row['peak_limit_gb']:.2f} GB)" if s == 32768
+                   else "")
+                + f"; one traced call ({row['traced_layers']} layers): "
+                f"device busy {busy:.1f} of {wall:.1f} ms "
+                f"({100 * busy / wall:.1f}%); {row['wall_s']:.1f} s in all")
+            for t_ms, count, ev in top:
+                log(f"    {t_ms:9.3f} ms  x{count:<7d} {ev[:90]}")
+            del logits, batch
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def prefill_moe_phase(device, seed: int = 0) -> dict:
+    """Phase 13b: olmoe-1b-7b at full depth (16 layers) through
+    ``make_prefill_step`` at B 4 x S 2048 under the local mesh: the
+    grouped GEMM's launches counted from 0 just before one call and read
+    just after, 3 an MoE layer, every one on the wgmma route."""
+    import torch
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import transformer as T
+
+    name, b, s = PREFILL_MOE
+    dev = torch.device(device)
+    cfg = ARCHS[name]
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    fn, _ = lm_steps.make_prefill_step(
+        cfg, dev, ShapeConfig("prefill", s, b, "prefill"))
+    batch = {"tokens": torch.from_numpy(make_batch(
+        cfg, b, s, seed=seed, step=0)["tokens"]).to(dev)}
+    with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
+        fn(params, batch)                                  # warm-up
+        torch.cuda.synchronize(dev)
+        GG.reset_launches()
+        t0 = time.perf_counter()
+        logits = fn(params, batch)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    launched, routes = GG.ragged_dot.launches, dict(GG.launches_by_route)
+    want = 3 * moe_layers(cfg)
+    if launched != want or routes["wgmma"] != want:
+        raise AssertionError(f"{name} prefill: {launched} grouped-GEMM "
+                             f"launches by route {routes}, expected {want} "
+                             f"on wgmma")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} prefill: non-finite logits")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": name, "layers": cfg.n_layers, "batch": b, "seq": s,
+            "ms": ms, "tok_s": b * s / (ms / 1e3),
+            "grouped_gemm_launches": launched, "grouped_gemm_routes": routes}
+
+
+def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
+                        compute_dtype=None) -> dict:
+    """Phase 13c: ``name`` at full width cut to ``layers`` layers, B 4 x
+    S 64, under the local mesh: the prefill step's last-token logits on
+    the card against the same prompt stepped through ``make_decode_step``
+    on the card, and against the prefill step on the CPU with the same
+    bf16 parameters; within ``LOGIT_TOL`` of the range on the rows held
+    (an MoE row whose tokens route differently between the two runs of
+    a pair is left out; ``MOE_CHECKED_MIN`` of the rows must be held)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import transformer as T
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    cfg = dataclasses.replace(ARCHS[name], n_layers=layers)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts
+            / cfg.moe.experts_per_tok))
+    b, s = PREFILL_AGREE_BATCH, PREFILL_AGREE_SEQ
+    cast = T.cast_params(cfg, T.init_params(
+        cfg, torch.Generator(dev).manual_seed(seed), dev))
+    cpu = cast.map(lambda t: t.to("cpu"))
+    cpu.compute_dtype = cast.compute_dtype
+    tokens = torch.from_numpy(make_batch(cfg, b, s, seed=seed,
+                                         step=0)["tokens"])
+    shape = ShapeConfig("agree", s, b, "prefill")
+    r_card, r_dec, r_cpu = [], [], []
+    with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
+        fn_card, _ = lm_steps.make_prefill_step(cfg, dev, shape)
+        with routing_recorded(r_card):
+            card = fn_card(cast, {"tokens": tokens.to(dev)}).cpu()
+        fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
+        with routing_recorded(r_cpu):
+            host = fn_cpu(cpu, {"tokens": tokens})
+        dec, _ = lm_steps.make_decode_step(
+            cfg, dev, ShapeConfig("agree", s, b, "decode"))
+        state = T.init_decode_state(cfg, cast, b, s)
+        with routing_recorded(r_dec):
+            for t in range(s):
+                stepped, state = dec(cast, state, tokens[:, t:t + 1].to(dev))
+        stepped = stepped.cpu()
+
+    def flipped(a_routes, b_routes, per_step: bool):
+        """Rows whose tokens route differently in any MoE layer."""
+        rows = torch.zeros(b, dtype=torch.bool)
+        n_moe = moe_layers(cfg)
+        if not n_moe:
+            return rows
+        for i in range(n_moe):
+            a = a_routes[i].reshape(b, s, -1)
+            if per_step:       # decode: one (B, k) entry a layer a step
+                other = torch.stack([b_routes[t * n_moe + i]
+                                     for t in range(s)], dim=1)
+            else:
+                other = b_routes[i].reshape(b, s, -1)
+            rows |= (a != other).any(-1).any(-1)
+        return rows
+
+    out = {"arch": name, "layers": layers, "batch": b, "seq": s,
+           "compute_dtype": cfg.compute_dtype}
+    for label, other, routes, per_step in (("decode", stepped, r_dec, True),
+                                           ("cpu", host, r_cpu, False)):
+        keep = ~flipped(r_card, routes, per_step)
+        held = int(keep.sum())
+        if held < MOE_CHECKED_MIN * b:
+            raise AssertionError(f"{name} prefill vs {label}: {b - held} of "
+                                 f"{b} rows route differently")
+        scale = float(other.abs().max())
+        gap = float((card[keep] - other[keep]).abs().max()) if held else 0.0
+        if not (bool(torch.isfinite(card).all())
+                and gap <= LOGIT_TOL * scale):
+            raise AssertionError(f"{name} prefill (card) vs {label}: max "
+                                 f"|gap| {gap} over max |logit| {scale}")
+        out[f"{label}_gap_over_range"] = gap / scale
+        out[f"{label}_rows_held"] = held
+        out[f"{label}_argmax_agree"] = float(
+            (card.argmax(-1) == other.argmax(-1)).float().mean())
+    out["wall_s"] = time.perf_counter() - t_start
+    del cast, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_check(done: dict, prefill_rows: list, card: str) -> dict:
+    """Phase 13d and the launcher half of 13e from :func:`dryrun_collect`'s
+    results: each 13a call's device-busy ms at least its cell's H100
+    ``compute_s`` (the count walks the code the card ran: a share over
+    100% means the FLOP count is wrong), ``memory_s`` printed as the
+    unfused upper bound it is; the CLI's (16, 16) cell ``ok`` with its
+    roofline terms; ``--production-mesh`` refused with the 256-rank
+    message."""
+    rc, so, se, secs = done["cells"]
+    if rc != 0:
+        raise AssertionError(f"cost_cell: exit {rc}: {se[-3000:]}")
+    cells = json.loads(so.strip().splitlines()[-1])
+    out = {"cells": [], "cells_s": secs}
+    for row, rec in zip(prefill_rows, cells):
+        if rec["layers"] not in (None, row["traced_layers"]) or (
+                rec["layers"] is None
+                and row["traced_layers"] != row["layers"]):
+            raise AssertionError(f"cost_cell depth {rec['layers']} against "
+                                 f"a trace of {row['traced_layers']}")
+        if rec["status"] != "ok" or rec["n_chips"] != 1:
+            raise AssertionError(f"cost_cell: {rec}")
+        r = rec["roofline"]
+        busy_s = row["device_busy_ms"] / 1e3
+        share = r["compute_s"] / busy_s
+        out["cells"].append({"batch": row["batch"], "seq": row["seq"],
+                             "layers": row["traced_layers"],
+                             "flops": rec["cost"]["flops"],
+                             "bytes": rec["cost"]["bytes accessed"],
+                             "compute_s": r["compute_s"],
+                             "memory_s_upper": r["memory_s"],
+                             "device_busy_s": busy_s,
+                             "compute_over_busy": share,
+                             "live_gib": rec["memory"]["live_gib"],
+                             "count_s": rec["compile_s"]})
+        log(f"  cost_cell (1, 1) B {row['batch']} x S {row['seq']}, "
+            f"{row['traced_layers']} layers: "
+            f"{rec['cost']['flops']:.4g} FLOPs, compute_s "
+            f"{r['compute_s']:.4f} s = {100 * share:.1f}% of the traced "
+            f"call's device-busy {busy_s:.4f} s; memory_s {r['memory_s']:.4f}"
+            f" s (an upper bound: unfused bytes); counted in "
+            f"{rec['compile_s']} s [{card}]")
+        if busy_s < r["compute_s"]:
+            raise AssertionError(f"B {row['batch']} S {row['seq']}: device "
+                                 f"busy {busy_s} s < compute_s "
+                                 f"{r['compute_s']} s: the FLOP count is "
+                                 f"wrong")
+    full = {(r["batch"], r["seq"]): r for r in prefill_rows}
+    for rec, (b, s, _, _, layers) in zip(
+            cells[len(prefill_rows):],
+            [x for x in PREFILL_SHAPES if x[4] is not None]):
+        r = rec["roofline"]
+        host_s = full[(b, s)]["median_ms"] / 1e3
+        out["cells"].append({"batch": b, "seq": s, "layers": None,
+                             "flops": rec["cost"]["flops"],
+                             "compute_s": r["compute_s"],
+                             "memory_s_upper": r["memory_s"],
+                             "host_s": host_s,
+                             "live_gib": rec["memory"]["live_gib"],
+                             "count_s": rec["compile_s"]})
+        log(f"  cost_cell (1, 1) B {b} x S {s} at full depth: "
+            f"{rec['cost']['flops']:.4g} FLOPs, compute_s "
+            f"{r['compute_s']:.4f} s = {100 * r['compute_s'] / host_s:.1f}%"
+            f" of the timed call's {host_s:.2f} s (host clock); memory_s "
+            f"{r['memory_s']:.4f} s (upper bound); counted in "
+            f"{rec['compile_s']} s [{card}]")
+    rc, so, se, secs = done["cli"]
+    if rc != 0:
+        raise AssertionError(f"dryrun CLI {DRYRUN_CLI}: exit {rc}: "
+                             f"{se[-3000:]}")
+    rec = json.loads((ROOT / "build" / "dryrun.json").read_text())[
+        "phi4-mini-3.8b|prefill_32k|1pod"]
+    if rec["status"] != "ok" or rec["mesh"] != "16x16":
+        raise AssertionError(f"dryrun CLI: {rec}")
+    r = rec["roofline"]
+    out["cli"] = {"roofline": r, "memory": rec["memory"],
+                  "head_sharding": rec["head_sharding"], "wall_s": secs}
+    log(f"  dryrun CLI {' '.join(DRYRUN_CLI[:4])} on the fake (16, 16) mesh "
+        f"({secs:.1f} s): per chip {r['flops']:.4g} FLOPs, compute "
+        f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s (upper "
+        f"bound), collective {r['collective_s']:.4g} s, dominant "
+        f"{r['dominant']}; live {rec['memory']['live_gib']:.1f} GiB of "
+        f"{rec['memory']['hbm_gib']:.1f}")
+    rc, so, se, secs = done["serve"]
+    if rc == 0 or "256 ranks" not in se:
+        raise AssertionError(f"launch.serve --production-mesh: exit {rc}, "
+                             f"{se[-2000:]}")
+    out["production_mesh_refusal"] = se.strip().splitlines()[-1]
+    log(f"  python -m repro_torch.launch.serve --production-mesh: exit {rc}:"
+        f" {out['production_mesh_refusal']}")
+    return out
+
+
+def planner_rows() -> list:
+    """Phase 13e: ``plan_parallelism`` under the H100 preset at train_4k
+    for every arch."""
+    from repro_torch.configs import ARCHS, STANDARD_SHAPES
+    from repro_torch.core import planner
+    rows = []
+    for name in sorted(ARCHS):
+        plan = planner.plan_parallelism(ARCHS[name],
+                                        STANDARD_SHAPES["train_4k"],
+                                        planner.H100_POD)
+        rows.append({"arch": name, "pp": plan.pp,
+                     "est_step_s": plan.est_step_s,
+                     "tokens_per_s": plan.tokens_per_s,
+                     "stages": [[s.blocks[0], s.blocks[1], s.tp, s.dup]
+                                for s in plan.stages]})
+        for line in plan.describe().splitlines():
+            log(f"  {line}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4055,6 +4532,52 @@ def main() -> int:
                        "wall_s": time.perf_counter() - t0}
     log(f"training phase done in {report['train']['wall_s']:.1f} s [{card}]")
 
+    # 13. the prefill step and the dry run against the card ----------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("phase 13: the dry-run CLI, cost_cell on (1, 1) and launch.serve "
+        "--production-mesh started on the host")
+    host_runs = dryrun_start()
+    try:
+        log(f"phase 13a: {PREFILL_ARCH} at full depth through "
+            f"make_prefill_step")
+        pre = prefill_full_phase(dev, args.seed)
+        log(f"phase 13b: {PREFILL_MOE[0]} at full depth, B {PREFILL_MOE[1]} x"
+            f" S {PREFILL_MOE[2]}, under the local mesh")
+        pre_moe = prefill_moe_phase(dev, args.seed)
+        log(f"  {pre_moe['arch']} x{pre_moe['layers']} layers: "
+            f"{pre_moe['ms']:.1f} ms ({pre_moe['tok_s']:.0f} prefill tok/s), "
+            f"grouped GEMM {pre_moe['grouped_gemm_launches']} launches (by "
+            f"route {pre_moe['grouped_gemm_routes']}) [{card}]")
+        log(f"phase 13c: prefill (card) against decode (card) and prefill "
+            f"(CPU), B {PREFILL_AGREE_BATCH} x S {PREFILL_AGREE_SEQ}")
+        agree = [prefill_agree_phase(name, layers, dev, args.seed, dt)
+                 for name, layers, dt in PREFILL_AGREE]
+        for r in agree:
+            log(f"  {r['arch']} x{r['layers']} layers, "
+                f"{r['compute_dtype']}: max |prefill - "
+                f"decode| / max |logit| {r['decode_gap_over_range']:.4f} "
+                f"({r['decode_rows_held']} rows held, argmax agrees "
+                f"{100 * r['decode_argmax_agree']:.0f}%), against the CPU "
+                f"{r['cpu_gap_over_range']:.4f} ({r['cpu_rows_held']} rows "
+                f"held, argmax {100 * r['cpu_argmax_agree']:.0f}%); tolerance"
+                f" {LOGIT_TOL}; {r['wall_s']:.1f} s")
+        log("phase 13d: the dry run against the card")
+        done = dryrun_collect(host_runs)
+    finally:
+        for p, _ in host_runs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    dry = dryrun_check(done, pre, card)
+    log("phase 13e: plan_parallelism on the H100 preset at train_4k")
+    plans = planner_rows()
+    report["prefill"] = {"full": pre, "moe": pre_moe, "agree": agree,
+                         "dryrun": dry, "plans": plans,
+                         "wall_s": time.perf_counter() - t0}
+    log(f"prefill and dry-run phase done in {report['prefill']['wall_s']:.1f}"
+        f" s [{card}]")
+
     def main_row(rows, **key):
         for r in rows:
             if all(r[k] == v for k, v in key.items()):
@@ -4134,7 +4657,7 @@ def main() -> int:
     gg_dec = main_row(gg_rows, case="olmoe decode B 4 up", product="fwd")
     gg_lib = [r["library_ms"] for r in gg_train]
     gg_routes = {r: sum(row["grouped_gemm_routes"][r]
-                        for row in runs + train_full)
+                        for row in runs + train_full + [pre_moe])
                  for r in ("wgmma", "stream", "tile")}
     xent = main_row(train_k["cross_entropy"], arch="phi4-mini-3.8b")
     aw = main_row(train_k["adamw_step"], moments="float32")
@@ -4173,8 +4696,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/grouped_gemm_sm90.cu",
         "replaces": "src/repro/models/moe_ep.py:114",
         "launches": sum(r["grouped_gemm_launches"] for r in runs)
-        + sum(r["grouped_gemm_launches"] for r in train_full),
-        # 10c's and 11c's launches by route: every one on the new source
+        + sum(r["grouped_gemm_launches"] for r in train_full)
+        + pre_moe["grouped_gemm_launches"],
+        # 10c's, 11c's and 13b's launches by route: every one on the new
+        # source
         "launches_by_route": gg_routes,
         "max_abs_err": max(r["max_abs_err"] for r in gg_rows),
         # forward + dx + dw of olmoe's up projection at 11c's shape (65,536

@@ -18,7 +18,7 @@ plain version both read: nothing is copied to the host.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -122,7 +122,7 @@ def grad_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     of its fp64 sum; CPU: the plain version."""
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
-    if leaves[0].device.type == "cpu":
+    if leaves[0].device.type in ("cpu", "meta"):  # meta: the dry run
         return grad_norm_ref(leaves)
     return _grad_norm_cuda(leaves)
 
@@ -193,17 +193,25 @@ def adamw_step(params: Sequence[torch.Tensor],
                ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                lr: Union[float, torch.Tensor], step: torch.Tensor, *,
                b1: float, b2: float, eps: float, weight_decay: float,
-               clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+               clip_norm: float, gnorm: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One AdamW step over the leaves, in place on ``params``, ``ms``
     and ``vs``; returns ``(grad_norm, step + 1)`` as device tensors.
     CUDA: the norm kernel, then one update launch a leaf; CPU: the plain
-    versions."""
+    versions.  ``gnorm``, when given, is the gradient norm to clip by
+    (a norm taken over other ranks' shards too); DTensor leaves take
+    :func:`_adamw_step_distributed`."""
     if not (len(params) == len(grads) == len(ms) == len(vs)):
         raise ValueError("params, grads and moments differ in length")
+    if params and _is_dtensor(params[0]):
+        return _adamw_step_distributed(
+            params, grads, ms, vs, lr, step, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay, clip_norm=clip_norm)
     new_step = step + 1
     if params and params[0].device.type == "cuda":
         grads = [dense(g) for g in grads]
-    gnorm = grad_norm(grads)
+    if gnorm is None:
+        gnorm = grad_norm(grads)
     if not params:
         return gnorm, new_step
     scalars = adamw_scalars(gnorm, lr, new_step, b1=b1, b2=b2,
@@ -211,7 +219,7 @@ def adamw_step(params: Sequence[torch.Tensor],
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     with torch.no_grad():
         for p, g, m, v in zip(params, grads, ms, vs):
-            if p.device.type == "cpu":
+            if p.device.type in ("cpu", "meta"):  # meta: the dry run
                 newp, newm, newv = adamw_leaf_ref(p, g, m, v, scalars,
                                                   **hyper)
                 p.copy_(newp)
@@ -225,3 +233,64 @@ def adamw_step(params: Sequence[torch.Tensor],
 # update-kernel launches (one a leaf) since the last reset (CPU calls
 # excluded); the norm's are grad_norm.launches
 adamw_step.launches = 0
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def global_grad_norm(grads: Sequence) -> torch.Tensor:
+    """The global norm of DTensor gradients, each in its parameter's
+    placements: every rank's local sum of squares (the norm kernel on
+    CUDA, one launch for the leaves of each replication count; the plain
+    version on the CPU), each leaf's divided by the ranks that hold the
+    same shard, summed, then all-reduced over every mesh dim (one
+    functional all-reduce a dim).  A plain fp32 0-d tensor, equal on
+    every rank."""
+    import torch.distributed._functional_collectives as funcol
+    mesh = grads[0].device_mesh
+    by_reps: Dict[int, List[torch.Tensor]] = {}
+    for g in grads:
+        reps = 1
+        for i, pl in enumerate(g.placements):
+            if pl.is_replicate():
+                reps *= mesh.shape[i]
+        by_reps.setdefault(reps, []).append(dense(g.to_local()))
+    sq = None
+    for reps, loc in sorted(by_reps.items()):
+        part = torch.square(grad_norm(loc).to(torch.float64)) / reps
+        sq = part if sq is None else sq + part
+    for i in range(mesh.ndim):
+        if mesh.shape[i] > 1:
+            sq = funcol.wait_tensor(funcol.all_reduce(
+                sq, "sum", mesh.get_group(i)))
+    return torch.sqrt(sq).to(torch.float32)
+
+
+def _adamw_step_distributed(params, grads, ms, vs, lr, step, *, b1, b2, eps,
+                            weight_decay, clip_norm):
+    """:func:`adamw_step` over DTensors (a data- and tensor-parallel
+    step): each gradient is first reduced into its parameter's
+    placements (a ``Partial`` over the data axes becomes an all-reduce,
+    or a reduce-scatter under ``fsdp_params``), the clip scale comes
+    from :func:`global_grad_norm`, and every leaf's update runs on this
+    rank's local shards (the update kernel on CUDA, the plain version on
+    the CPU).  ``step`` may be a DTensor (replicated); the new step comes
+    back in its form."""
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             for p, g in zip(params, grads)]
+    gnorm = global_grad_norm(grads)
+    step_in = step
+    if _is_dtensor(step):
+        step = step.to_local()
+    new_step = step + 1
+    local = [[t.to_local() for t in ts] for ts in (params, grads, ms, vs)]
+    _, new_loc = adamw_step(*local, lr, step, b1=b1, b2=b2, eps=eps,
+                            weight_decay=weight_decay, clip_norm=clip_norm,
+                            gnorm=gnorm)
+    if _is_dtensor(step_in):
+        from torch.distributed.tensor import DTensor
+        new_step = DTensor.from_local(new_loc, step_in.device_mesh,
+                                      step_in.placements, run_check=False)
+    return gnorm, new_step

@@ -123,7 +123,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     """Mean cross-entropy of ``logits`` (N, V) against ``labels`` (N,),
     an fp32 scalar.  CUDA: the Triton kernels (:class:`CrossEntropy`);
     CPU: the plain version."""
-    if logits.device.type == "cpu":
+    if logits.device.type in ("cpu", "meta"):  # meta: the dry run
         return cross_entropy_ref(logits, labels)
     return CrossEntropy.apply(logits, labels)
 

@@ -301,7 +301,7 @@ def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     over ring caches that already hold it: ``q`` (B, KV, G, D), caches
     (B, S, KV, D) in q's dtype or INT8 (scale 1/64) -> (B, KV, G, D) in
     q's dtype.  CUDA: the kernel; CPU: the plain version."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry run
         _check(q, k_cache, v_cache)
         return gqa_decode_attention_ref(q, k_cache, v_cache, pos, window)
     return gqa_decode_attention_cuda(q, k_cache, v_cache, pos, window)

@@ -377,19 +377,19 @@ def ragged_dot_cuda(mode: int, a: torch.Tensor, b: torch.Tensor,
 
 
 def _fwd(x, w, gs):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run
         return ragged_dot_ref(x, w, gs)
     return ragged_dot_cuda(FWD, x, w, gs)
 
 
 def _dx(dy, w, gs):
-    if dy.device.type == "cpu":
+    if dy.device.type in ("cpu", "meta"):  # meta: the dry run
         return ragged_dot_dx_ref(dy, w, gs)
     return ragged_dot_cuda(DX, dy, w, gs)
 
 
 def _dw(x, dy, gs):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry run
         return ragged_dot_dw_ref(x, dy, gs)
     return ragged_dot_cuda(DW, x, dy, gs)
 

@@ -116,7 +116,7 @@ def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     """``(y, h)`` of one recurrence step (shapes and dtypes as
     :func:`ssd_decode_step_ref`): the new state is written over ``h`` on
     every device.  CUDA: the Triton kernel; CPU: the plain version."""
-    if h.device.type == "cpu":
+    if h.device.type in ("cpu", "meta"):  # meta: the dry run
         _check(h, x, dt, a_log, b, c, d)
         y, new = ssd_decode_step_ref(h, x, dt, a_log, b, c, d)
         return y, h.copy_(new)

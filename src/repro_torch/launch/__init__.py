@@ -1,5 +1,8 @@
 """Launch layer: the LM serving and training entry points (``python -m
 repro_torch.launch.serve``, ``python -m repro_torch.launch.train``),
-their decode and train steps, the ambient mesh context, the local mesh
-(:mod:`.mesh`) and the tuning knobs.  The production mesh, sharding,
-the dry-run and its analysis come with later slices (ROADMAP §1)."""
+their train, prefill and decode steps (on one device, or over a mesh as
+DTensors: :mod:`.steps`, :mod:`.spmd`), the ambient mesh context, the
+local and production meshes (:mod:`.mesh`), the sharding rules
+(:mod:`.sharding`), the tuning knobs, and the dry run on a fake process
+group (``python -m repro_torch.launch.dryrun``) with its roofline
+analysis (:mod:`.analysis`)."""

@@ -20,12 +20,16 @@ Prints what the reference prints: the run's shape, the prefill and
 decode times (host clock after a device synchronize) and the first
 sequence's first 16 sampled token ids.  Sampling draws from a generator
 seeded with ``--seed + 1`` (its numbers differ from ``jax.random``'s);
-``--temperature 0`` is greedy.
+``--temperature 0`` is greedy.  ``--production-mesh`` decodes over the
+reference's (16, 16) mesh (:func:`.mesh.make_production_mesh`): it needs
+a process group of 256 ranks, and without one it prints which and exits
+1 (there is no fallback to the local mesh).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Dict, Optional, Sequence
 
@@ -37,7 +41,8 @@ from ..data import make_batch
 from ..device import resolve_device
 from ..models import transformer as T
 from . import meshctx, steps
-from .mesh import data_axes_of, make_mesh
+from .mesh import make_mesh, make_production_mesh
+from .sharding import usable_data_axes
 
 __all__ = ["main", "serve"]
 
@@ -53,21 +58,19 @@ def serve(args: argparse.Namespace) -> Dict:
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduced(cfg)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs the production mesh and "
-            "launch/sharding, which are not ported yet (ROADMAP §1)")
+    mesh = make_production_mesh() if args.production_mesh \
+        else make_mesh((1, 1), ("data", "model"))
     dev = resolve_device(args.device)
     total = args.prompt_len + args.gen
-    mesh = make_mesh((1, 1), ("data", "model"))
 
-    with meshctx.use_mesh(mesh, data_axes=data_axes_of(mesh)):
+    with meshctx.use_mesh(mesh, data_axes=usable_data_axes(mesh,
+                                                           args.batch)):
         params = T.init_params(cfg, torch.Generator(dev).manual_seed(
             args.seed), dev)
         # one cast per model (the masters are not needed after it)
         params = T.cast_params(cfg, params)
         shape = ShapeConfig("cli", total, args.batch, "decode")
-        decode_fn, _ = steps.make_decode_step(cfg, dev, shape)
+        decode_fn, _ = steps.make_decode_step(cfg, dev, shape, mesh=mesh)
 
         batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
             cfg, args.batch, args.prompt_len, seed=args.seed,
@@ -130,7 +133,13 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parser().parse_args(argv)
-    out = serve(args)
+    try:
+        out = serve(args)
+    except RuntimeError as e:
+        if not (args.production_mesh and "production mesh" in str(e)):
+            raise
+        print(f"--production-mesh: {e}", file=sys.stderr)
+        return 1
     cfg, gen = out["cfg"], out["tokens"]
     t_prefill, t_gen = out["prefill_s"], out["decode_s"]
     print(f"arch={cfg.name} batch={args.batch} "

@@ -27,13 +27,17 @@ the median ms/step).  The parameters come from a generator seeded 0
 (its numbers differ from ``jax.random``'s).  A checkpoint named step N
 holds the state after N updates and the stream positioned at batch N,
 so a resume from it repeats nothing: every ``--ckpt-every`` updates and
-at the end.  ``--production-mesh`` raises: the production mesh and the
-sharding module are not ported yet.
+at the end.  ``--production-mesh`` trains over the reference's (16, 16)
+mesh (:func:`.mesh.make_production_mesh`), the step's tensors placed by
+the sharding rules: it needs a process group of 256 ranks, and without
+one it prints which and exits 1 (there is no fallback to the local
+mesh).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -48,7 +52,8 @@ from ..models import transformer as T
 from ..optim import AdamWConfig, adamw_init
 from ..runtime import StragglerDetector, plan_remesh
 from . import meshctx, steps
-from .mesh import axis_size, data_axes_of, make_mesh
+from .mesh import axis_size, make_mesh, make_production_mesh
+from .sharding import usable_data_axes
 
 __all__ = ["main", "parser", "local_mesh"]
 
@@ -98,20 +103,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduced(cfg)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs the production mesh and "
-            "launch/sharding, which are not ported yet (ROADMAP §1)")
+    try:
+        mesh = make_production_mesh() if args.production_mesh \
+            else local_mesh()
+    except RuntimeError as e:
+        print(f"--production-mesh: {e}", file=sys.stderr)
+        return 1
     dev = resolve_device(args.device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     adamw = AdamWConfig()
-    mesh = local_mesh()
-    dp = data_axes_of(mesh)
+    dp = usable_data_axes(mesh, args.batch)
 
     with meshctx.use_mesh(mesh, data_axes=dp):
         step_fn, _ = steps.make_train_step(
             cfg, dev, shape, adamw, lr_peak=args.lr,
-            warmup=max(2, args.steps // 10), total_steps=args.steps)
+            warmup=max(2, args.steps // 10), total_steps=args.steps,
+            mesh=mesh)
         params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
         opt = adamw_init(params, adamw)
 

@@ -1,8 +1,11 @@
 """Cost-probe mode for the roofline analysis.
 
 Copied from :mod:`repro.models.analysis_flags`.  The port's layers read
-``naive_attention``; the dry-run that sets these flags comes with a
-later slice.  What follows is the reference's account.
+``naive_attention`` and ``moe_ep`` reads ``balanced_moe``; the port's
+dry run (:mod:`repro_torch.launch.dryrun`) sets ``balanced_moe`` alone:
+its blocks are a Python loop and its counter walks the blockwise
+attention loop, so neither the depth probes nor naive attention are
+needed.  What follows is the reference's account.
 
 XLA's ``cost_analysis()`` counts a ``while``-loop body **once** regardless
 of trip count (verified empirically — see EXPERIMENTS.md §Roofline

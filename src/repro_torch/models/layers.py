@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention import gqa_decode_attention
+from ..launch.mesh import axis_size
 from .analysis_flags import FLAGS as _AFLAGS
 
 __all__ = [
@@ -234,46 +235,120 @@ def attention_apply(cfg: ArchConfig, p: Params, x, *, causal: bool = True,
                     kv_src: Optional[torch.Tensor] = None,
                     positions: Optional[torch.Tensor] = None,
                     use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence attention (training / prefill / encoder / cross)."""
-    b, s, d = x.shape
-    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    g = h // kvh
+    """Full-sequence attention (training / prefill / encoder / cross).
+    Under a distributed mesh (DTensor inputs) the projections are DTensor
+    products and the rest runs as a local region
+    (:func:`_attention_core`)."""
     src = x if kv_src is None else kv_src
-    sk = src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, kvh, g, hd)
-    k = (src @ p["wk"]).reshape(b, sk, kvh, hd)
-    v = (src @ p["wv"]).reshape(b, sk, kvh, hd)
+    return _attention_core(cfg, x @ p["wq"], src @ p["wk"], src @ p["wv"],
+                           p["wo"], causal=causal and kv_src is None,
+                           positions=positions, use_rope=use_rope)
+
+
+def _attention_local(cfg: ArchConfig, q2, k2, v2, causal: bool,
+                     positions: Optional[torch.Tensor], use_rope: bool,
+                     q_pos0: int = 0) -> torch.Tensor:
+    """RoPE, the mask and the attention core on plain tensors: ``q2``
+    (B, S, H·hd), ``k2``/``v2`` (B, Sk, KV·hd) -> context (B, S, H·hd).
+    The head counts are read from the widths (a model rank's share under
+    tensor parallelism); ``q_pos0`` is the absolute position of ``q2``'s
+    first row (a sequence-parallel rank's slice)."""
+    b, s, _ = q2.shape
+    sk = k2.shape[1]
+    hd = cfg.hd
+    h, kvh = q2.shape[-1] // hd, k2.shape[-1] // hd
+    g = h // kvh
+    q = q2.reshape(b, s, kvh, g, hd)
+    k = k2.reshape(b, sk, kvh, hd)
+    v = v2.reshape(b, sk, kvh, hd)
     if use_rope:
-        qpos = positions if positions is not None \
-            else torch.arange(s, device=x.device)
+        qpos = positions[q_pos0:q_pos0 + s] if positions is not None \
+            else q_pos0 + torch.arange(s, device=q2.device)
         cos_q, sin_q = rope_tables(qpos, hd, cfg.rope_theta)
-        cos_k, sin_k = rope_tables(torch.arange(sk, device=x.device), hd,
+        cos_k, sin_k = rope_tables(torch.arange(sk, device=q2.device), hd,
                                    cfg.rope_theta)
         q = apply_rope(q.reshape(b, s, kvh * g, hd), cos_q, sin_q) \
             .reshape(b, s, kvh, g, hd)
         k = apply_rope(k, cos_k, sin_k)
-    mfn = _mask_fn(cfg, causal and kv_src is None)
-    _check_seq_parallel()
+    mfn = _mask_fn(cfg, causal)
     if sk > FLASH_THRESHOLD and not _AFLAGS["naive_attention"]:
-        ctx = flash_attention(q, k, v, mfn)
+        ctx = flash_attention(q, k, v, mfn, q_pos0)
     else:
-        ctx = _gqa_scores_ctx(q, k, v, mfn, 0)
-    return ctx.reshape(b, s, h * hd) @ p["wo"]
+        ctx = _gqa_scores_ctx(q, k, v, mfn, q_pos0)
+    return ctx.reshape(b, s, h * hd)
 
 
-def _check_seq_parallel() -> None:
-    """The ``attn_seq_parallel`` knob reshards attention over a mesh's
-    model axis; without a mesh, or on a model axis of one member (the
-    launchers' local mesh), it changes nothing, as in the reference.  Over
-    a wider model axis it waits for the sharding slice."""
-    from ..launch import meshctx, tuning
-    from ..launch.mesh import axis_size
-    ctx = meshctx.current()
-    if (tuning.FLAGS["attn_seq_parallel"] and ctx is not None
-            and axis_size(ctx.mesh, ctx.model_axis) > 1):
-        raise NotImplementedError(
-            "sequence-parallel attention over a mesh is not ported yet "
-            "(ROADMAP §1, launch/mesh and sharding)")
+def _attention_core(cfg: ArchConfig, q2, k2, v2, wo, *, causal: bool,
+                    positions: Optional[torch.Tensor],
+                    use_rope: bool) -> torch.Tensor:
+    """:func:`_attention_local` and the output product ``@ wo`` on one
+    device; over a distributed mesh a local region
+    (:mod:`repro_torch.launch.spmd`) with these placements over the
+    model axis (the data axes keep the batch's):
+
+    * the ``attn_seq_parallel`` knob, the sequence divisible by the
+      model axis (:func:`_seq_parallel_placements`): q ``Shard`` on its
+      sequence dim, k and v replicated; the context leaves sequence-
+      sharded and goes back to the flattened head dim (the sharding of
+      ``wo``'s rows) for the row-parallel output product;
+    * whole heads on each rank (``H`` and ``KV`` divisible): q, k, v
+      ``Shard`` on the flattened head dim, ``wo`` row-sharded, the
+      output ``Partial`` (Megatron's row-parallel product);
+    * otherwise (the ``head_dim`` and ``replicated`` fallbacks): q, k, v
+      and ``wo`` gathered, attention computed whole on every model rank
+      (the reference psums head-dim partial scores instead).
+    """
+    from ..launch import spmd
+    if not spmd.is_dtensor(q2):
+        return _attention_local(cfg, q2, k2, v2, causal, positions,
+                                use_rope) @ wo
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q2.device_mesh
+    tp = axis_size(mesh, "model")
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    sp = _seq_parallel_placements(mesh, q2)
+    if sp is not None:
+        q_pl, kv_pl, out_pl, wo_pl = sp
+        q_pos0 = mesh.get_local_rank("model") * (q2.shape[1] // tp)
+        # k and v serve every rank's rows: their gradients leave partial
+        kv_grad = spmd.with_axes(mesh, q2.placements, Partial())
+        ctx = spmd.local_region(
+            lambda q, k, v: _attention_local(cfg, q, k, v, causal,
+                                             positions, use_rope, q_pos0),
+            mesh, (q2, k2, v2), (q_pl, kv_pl, kv_pl), out_pl,
+            (q_pl, kv_grad, kv_grad))
+        return ctx.redistribute(mesh, wo_pl) @ wo
+    heads = h % tp == 0 and kvh % tp == 0
+    pl = spmd.with_axes(mesh, q2.placements, Shard(2) if heads
+                        else None)
+    wo_pl = spmd.with_axes(mesh, q2.placements, Shard(0) if heads
+                           else None, data=Replicate())
+    out_pl = spmd.with_axes(mesh, q2.placements, Partial() if heads
+                            else None)
+    return spmd.local_region(
+        lambda q, k, v, w: _attention_local(cfg, q, k, v, causal, positions,
+                                            use_rope) @ w,
+        mesh, (q2, k2, v2, wo), (pl, pl, pl, wo_pl), out_pl,
+        (pl, pl, pl, spmd.grad_over_data(mesh, wo_pl, q2.placements)))
+
+
+def _seq_parallel_placements(mesh, q2):
+    """The ``attn_seq_parallel`` knob's reshard (the reference's
+    ``_maybe_seq_parallel``): ``(q, k/v, context, context for wo)``
+    placements when the knob is on, the model axis wider than 1 and the
+    sequence divisible by it; else ``None`` (nothing changes: an
+    indivisible sequence is left as it is)."""
+    from torch.distributed.tensor import Shard
+    from ..launch import spmd, tuning
+    tp = axis_size(mesh, "model")
+    if (not tuning.FLAGS["attn_seq_parallel"] or tp == 1
+            or q2.shape[1] % tp):
+        return None
+    q_pl = spmd.with_axes(mesh, q2.placements, Shard(1))
+    kv_pl = spmd.with_axes(mesh, q2.placements)
+    wo_pl = spmd.with_axes(mesh, q2.placements, Shard(2)
+                           if q2.shape[2] % tp == 0 else None)
+    return q_pl, kv_pl, q_pl, wo_pl
 
 
 def _kv_store(x, store_dtype):
@@ -292,27 +367,87 @@ def attention_decode(cfg: ArchConfig, p: Params, x, cache: Params,
     ``cache = {"k": (B, S_cache, KV, D), "v": ...}``, written in place;
     ``pos`` is the absolute position of the incoming token (a host int).
     For sliding-window archs the cache holds only ``window`` slots and is
-    written ring-wise — long_500k memory stays O(window).
+    written ring-wise — long_500k memory stays O(window).  Under a
+    distributed mesh the projections are DTensor products and the rest
+    runs as a local region (:func:`_decode_core`).
     """
-    b, one, d = x.shape
-    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    ctx, ck, cv = _decode_core(cfg, x @ p["wq"], x @ p["wk"], x @ p["wv"],
+                               cache["k"], cache["v"], pos)
+    return ctx @ p["wo"], {"k": ck, "v": cv}
+
+
+def _decode_local(cfg: ArchConfig, q2, k2, v2, ck, cv, pos: int,
+                  hd_shard=None):
+    """RoPE, the cache store and the decode attention kernel on plain
+    tensors: ``q2`` (B, 1, H·hd), ``k2``/``v2`` (B, 1, KV·hd), caches
+    (B, S_cache, KV, hd) -> ``(context (B, 1, H·hd), ck, cv)``.
+    ``hd_shard = (rank, group)``: the caches hold this model rank's slice
+    of the head dim (the ``head_dim`` layout): the new slot's slice is
+    stored, and the kernel reads the caches gathered over ``group``."""
+    b = q2.shape[0]
+    hd = cfg.hd
+    h, kvh = q2.shape[-1] // hd, k2.shape[-1] // hd
     g = h // kvh
-    s_cache = cache["k"].shape[1]
-    q = (x @ p["wq"]).reshape(b, 1, kvh, g, hd)
-    k = (x @ p["wk"]).reshape(b, 1, kvh, hd)
-    v = (x @ p["wv"]).reshape(b, 1, kvh, hd)
-    cos, sin = rope_tables(torch.arange(pos, pos + 1, device=x.device), hd,
+    s_cache = ck.shape[1]
+    q = q2.reshape(b, 1, kvh, g, hd)
+    k = k2.reshape(b, 1, kvh, hd)
+    v = v2.reshape(b, 1, kvh, hd)
+    cos, sin = rope_tables(torch.arange(pos, pos + 1, device=q2.device), hd,
                            cfg.rope_theta)
     q = apply_rope(q.reshape(b, 1, h, hd), cos, sin).reshape(
         b, 1, kvh, g, hd)
     k = apply_rope(k, cos, sin)
     slot = pos % s_cache                      # ring index (== pos if full)
-    ck, cv = cache["k"], cache["v"]
-    ck[:, slot] = _kv_store(k[:, 0], ck.dtype)
-    cv[:, slot] = _kv_store(v[:, 0], cv.dtype)
-    ctx = gqa_decode_attention(q[:, 0], ck, cv, pos, cfg.sliding_window)
-    out = ctx.reshape(b, 1, h * hd) @ p["wo"]
-    return out, {"k": ck, "v": cv}
+    if hd_shard is None:
+        ck[:, slot] = _kv_store(k[:, 0], ck.dtype)
+        cv[:, slot] = _kv_store(v[:, 0], cv.dtype)
+        k_all, v_all = ck, cv
+    else:
+        import torch.distributed._functional_collectives as funcol
+        rank, group = hd_shard
+        w = ck.shape[-1]
+        part = slice(rank * w, (rank + 1) * w)
+        ck[:, slot] = _kv_store(k[:, 0, :, part], ck.dtype)
+        cv[:, slot] = _kv_store(v[:, 0, :, part], cv.dtype)
+        gather = getattr(funcol, "all_gather_single", None) \
+            or funcol.all_gather_tensor
+        k_all = funcol.wait_tensor(gather(ck.contiguous(), 3, group))
+        v_all = funcol.wait_tensor(gather(cv.contiguous(), 3, group))
+    ctx = gqa_decode_attention(q[:, 0], k_all, v_all, pos,
+                               cfg.sliding_window)
+    return ctx.reshape(b, 1, h * hd), ck, cv
+
+
+def _decode_core(cfg: ArchConfig, q2, k2, v2, ck, cv, pos: int):
+    """:func:`_decode_local` on one device; over a distributed mesh a
+    local region whose model-axis placements follow the caches' (the
+    :func:`~repro_torch.launch.sharding.decode_state_specs` layout):
+    whole heads (``Shard`` on the caches' head dim): q, k, v and the
+    context ``Shard`` on the flattened head dim; the head dim (``Shard``
+    on its last dim): q, k and v gathered, each rank stores its slice
+    and the kernel reads the caches gathered over the model axis;
+    replicated: everything gathered.  The caches are written in place
+    in their own shards either way."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(q2):
+        return _decode_local(cfg, q2, k2, v2, ck, cv, pos)
+    from torch.distributed.tensor import Shard
+    mesh = q2.device_mesh
+    axis = mesh.mesh_dim_names.index("model")
+    c_model = ck.placements[axis]
+    cache_pl = tuple(ck.placements)
+    if c_model == Shard(2):
+        pl = spmd.with_axes(mesh, q2.placements, Shard(2))
+        hd_shard = None
+    else:
+        pl = spmd.with_axes(mesh, q2.placements)
+        hd_shard = ((mesh.get_local_rank("model"), mesh.get_group("model"))
+                    if c_model == Shard(3) else None)
+    return spmd.local_region(
+        lambda q, k, v, kc, vc: _decode_local(cfg, q, k, v, kc, vc, pos,
+                                              hd_shard),
+        mesh, (q2, k2, v2, ck, cv), (pl, pl, pl, cache_pl, cache_pl),
+        (pl, cache_pl, cache_pl))
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +502,16 @@ def _mla_expand(cfg: ArchConfig, p: Params, c_kv):
 
 def mla_apply(cfg: ArchConfig, p: Params, x, *,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence MLA; under a distributed mesh a local region
+    (:func:`_mla_region`)."""
+    return _mla_region(cfg, p, x, None,
+                       lambda c, pp, xx, _: _mla_apply_local(
+                           c, pp, xx, positions=positions))
+
+
+def _mla_apply_local(cfg: ArchConfig, p: Params, x, *,
+                     positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -387,6 +532,67 @@ def mla_apply(cfg: ArchConfig, p: Params, x, *,
 
 def mla_decode(cfg: ArchConfig, p: Params, x, cache: Params,
                pos: int) -> Tuple[torch.Tensor, Params]:
+    """:func:`_mla_decode_local`; under a distributed mesh a local region
+    (:func:`_mla_region`)."""
+    return _mla_region(cfg, p, x, cache,
+                       lambda c, pp, xx, cc: _mla_decode_local(
+                           c, pp, xx, cc, pos))
+
+
+def _mla_region(cfg: ArchConfig, p: Params, x, cache, body):
+    """``body(cfg, p, x, cache)`` on one device; over a distributed mesh
+    a local region over the whole sublayer, Megatron-style: when the
+    model axis divides the heads, ``wq_b`` and ``wkv_b`` enter column-
+    sharded (this rank's heads), ``wo`` row-sharded, the body runs with
+    this rank's head count and its output leaves ``Partial`` over the
+    model axis (summed by the residual add); otherwise every weight is
+    gathered and the output is whole on each rank.  x and the latent
+    caches are replicated over the model axis (every rank stores the
+    same latents in place); weights are gathered over the data axes
+    (under ``fsdp_params``), their gradients leave partial over the data
+    axes the batch is sharded on."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(x):
+        return body(cfg, p, x, cache)
+    import dataclasses
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    tp = axis_size(mesh, "model")
+    heads = cfg.n_heads % tp == 0
+    x_pl = spmd.with_axes(mesh, x.placements)
+
+    def w(model):
+        return spmd.with_axes(mesh, x.placements, model, data=Replicate())
+
+    w_pl = {k: w(None) for k in p.keys()}
+    if heads:
+        w_pl.update(wq_b=w(Shard(1)), wkv_b=w(Shard(1)), wo=w(Shard(0)))
+        local = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                                    head_dim=cfg.hd)
+    else:
+        local = cfg
+    w_grad = {k: spmd.grad_over_data(mesh, v, x.placements)
+              for k, v in w_pl.items()}
+    if heads:
+        # the replicated weights serve this rank's heads only: their
+        # gradients are partial sums over the model axis too
+        for k in p.keys():
+            if k not in ("wq_b", "wkv_b", "wo"):
+                w_grad[k] = spmd.with_axes(mesh, w_grad[k], Partial())
+    # the output and x's gradient: partial sums over the heads' ranks
+    part = spmd.with_axes(mesh, x.placements, Partial() if heads else None)
+    if cache is None:
+        return spmd.local_region(
+            lambda pp, xx: body(local, pp, xx, None), mesh, (p, x),
+            (w_pl, x_pl), part, (w_grad, part))
+    c_pl = {k: tuple(v.placements) for k, v in cache.items()}
+    return spmd.local_region(
+        lambda pp, xx, cc: body(local, pp, xx, cc), mesh, (p, x, cache),
+        (w_pl, x_pl, c_pl), (part, c_pl), (w_grad, part, c_pl))
+
+
+def _mla_decode_local(cfg: ArchConfig, p: Params, x, cache: Params,
+                      pos: int) -> Tuple[torch.Tensor, Params]:
     """Latent-cache decode in the **absorbed** formulation.
 
     The up-projections fold into the query/context sides —
@@ -440,9 +646,45 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, dtype,
 
 
 def mlp_apply(cfg: ArchConfig, p: Params, x) -> torch.Tensor:
+    """The dense MLP; under a distributed mesh a local region
+    (:func:`_mlp_region`)."""
+    from ..launch import spmd
+    if spmd.is_dtensor(x):
+        return _mlp_region(cfg, p, x)
+    return _mlp_local(cfg, p, x)
+
+
+def _mlp_local(cfg: ArchConfig, p: Params, x) -> torch.Tensor:
     if cfg.act == "swiglu":
         return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
     return gelu(x @ p["wi"]) @ p["wo"]
+
+
+def _mlp_region(cfg: ArchConfig, p: Params, x):
+    """Megatron's MLP as a local region: x replicated over the model
+    axis, ``wi``/``wg`` column-sharded and ``wo`` row-sharded when the
+    model axis divides ``d_ff`` (the output leaves ``Partial`` over it,
+    x's gradient too), else every weight gathered (the output whole on
+    each rank).  Weights are gathered over the data axes; their
+    gradients leave partial over the data axes the batch is sharded
+    on."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..launch import spmd
+    mesh = x.device_mesh
+    split = p["wi"].shape[1] % axis_size(mesh, "model") == 0
+
+    def w(model):
+        return spmd.with_axes(mesh, x.placements, model, data=Replicate())
+
+    w_pl = {k: w((Shard(0) if k == "wo" else Shard(1)) if split
+                 else None) for k in p.keys()}
+    w_grad = {k: spmd.grad_over_data(mesh, v, x.placements)
+              for k, v in w_pl.items()}
+    x_pl = spmd.with_axes(mesh, x.placements)
+    part = spmd.with_axes(mesh, x.placements,
+                          Partial() if split else None)
+    return spmd.local_region(lambda pp, xx: _mlp_local(cfg, pp, xx), mesh,
+                             (p, x), (w_pl, x_pl), part, (w_grad, part))
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +721,9 @@ def moe_apply(cfg: ArchConfig, p: Params, x) -> Tuple[torch.Tensor,
     grouped expert GEMM); otherwise it uses the dense one-hot reference
     dispatch (smoke-test scale only — it materializes ``(B, S, E, f)``).
     """
-    from ..launch import meshctx
+    from ..launch import meshctx, spmd
+    if spmd.is_dtensor(x):
+        return _moe_region(cfg, p, x)
     ctx = meshctx.current()
     if ctx is not None:
         from .moe_ep import moe_ep_apply
@@ -508,3 +752,40 @@ def moe_apply(cfg: ArchConfig, p: Params, x) -> Tuple[torch.Tensor,
     pe = torch.mean(torch.softmax(logits, -1), dim=(0, 1))
     aux = m.n_experts * torch.sum(me * pe)
     return out, aux
+
+
+def _moe_region(cfg: ArchConfig, p: Params, x):
+    """``moe_apply`` over a distributed mesh: the reference's
+    ``shard_map`` (in_specs ``P(dp, None, None)`` for x, the experts
+    ``P(model, None, None)``, router and shared expert ``P()``) as a
+    local region around :func:`~repro_torch.models.moe_ep.
+    moe_ep_apply_local`, which launches the grouped GEMM on this rank's
+    expert slice and all-reduces the output over the model group itself.
+    So the output and x's gradient leave replicated over the model axis,
+    the aux loss replicated everywhere (averaged over the data groups
+    the batch is sharded on); the weights' gradients leave partial over
+    those data axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..launch import spmd
+    from .moe_ep import moe_ep_apply_local
+    mesh = x.device_mesh
+    tp = axis_size(mesh, "model")
+    if p["wi"].shape[0] % tp:
+        raise ValueError(f"{p['wi'].shape[0]} experts do not split over "
+                         f"{tp} model ranks")
+    x_pl = spmd.with_axes(mesh, x.placements)
+    rep = spmd.with_axes(mesh, x.placements, data=Replicate())
+    ex = spmd.with_axes(mesh, x.placements, Shard(0), data=Replicate())
+    w_pl = {k: (ex if k in ("wi", "wg", "wo") else
+                spmd.with_axes(mesh, x.placements, data=Replicate()))
+            for k in p.keys()}
+    w_grad = {k: spmd.grad_over_data(mesh, v, x.placements)
+              for k, v in w_pl.items()}
+    names = mesh.mesh_dim_names
+    group = mesh.get_group("model") if tp > 1 else None
+    data_groups = [mesh.get_group(a) for i, a in enumerate(names)
+                   if a != "model" and x.placements[i].is_shard()]
+    return spmd.local_region(
+        lambda pp, xx: moe_ep_apply_local(cfg, pp, xx, group=group,
+                                          data_groups=data_groups),
+        mesh, (p, x), (w_pl, x_pl), (x_pl, rep), (w_grad, x_pl))

@@ -78,8 +78,45 @@ def _causal_conv(x, w, b):
     return F.silu(out + b.to(out.dtype))
 
 
+def _ssm_region(p: Params, u, state, body):
+    """``body(p, u, state)`` on one device; over a distributed mesh a
+    local region over the whole sublayer: its weights and recurrent
+    state gathered over the model axis (the in_proj's column shards do
+    not follow the split into z, x, B, C and dt), u replicated over it,
+    the output whole on every model rank.  Weights are gathered over the
+    data axes too; their gradients leave partial over the data axes the
+    batch is sharded on.  A decode state comes back in its own
+    placements (the new ``h`` a new DTensor, resharded)."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(u):
+        return body(p, u, state)
+    from torch.distributed.tensor import Replicate
+    mesh = u.device_mesh
+    u_pl = spmd.with_axes(mesh, u.placements)
+    w_pl = spmd.with_axes(mesh, u.placements, data=Replicate())
+    w_grad = spmd.grad_over_data(mesh, w_pl, u.placements)
+    if state is None:
+        return spmd.local_region(body, mesh, (p, u, None),
+                                 (w_pl, u_pl, None), u_pl,
+                                 (w_grad, u_pl, None))
+    kept = {k: tuple(v.placements) for k, v in state.items()}
+    s_pl = {k: spmd.with_axes(mesh, v.placements)
+            for k, v in state.items()}
+    out, new = spmd.local_region(body, mesh, (p, u, state),
+                                 (w_pl, u_pl, s_pl), (u_pl, s_pl),
+                                 (w_grad, u_pl, s_pl))
+    return out, {k: v.redistribute(mesh, kept[k]) for k, v in new.items()}
+
+
 def ssm_apply(cfg: ArchConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Full-sequence SSD (training / prefill)."""
+    """Full-sequence SSD (training / prefill); under a distributed mesh a
+    local region (:func:`_ssm_region`)."""
+    return _ssm_region(p, u, None,
+                       lambda pp, uu, _: _ssm_apply_local(cfg, pp, uu))
+
+
+def _ssm_apply_local(cfg: ArchConfig, p: Params,
+                     u: torch.Tensor) -> torch.Tensor:
     s, d_in, nh, conv_dim = _dims(cfg)
     bsz, S, _ = u.shape
     Q = min(s.chunk, S)
@@ -165,7 +202,14 @@ def ssm_state_init(cfg: ArchConfig, batch: int, dtype,
 def ssm_decode(cfg: ArchConfig, p: Params, u: torch.Tensor,
                state: Params) -> Tuple[torch.Tensor, Params]:
     """One-token recurrence: u (B, 1, d).  The state's ``h`` is updated
-    in place on every device; the conv window is a new tensor."""
+    in place on every device; the conv window is a new tensor.  Under a
+    distributed mesh a local region (:func:`_ssm_region`)."""
+    return _ssm_region(p, u, state,
+                       lambda pp, uu, st: _ssm_decode_local(cfg, pp, uu, st))
+
+
+def _ssm_decode_local(cfg: ArchConfig, p: Params, u: torch.Tensor,
+                      state: Params) -> Tuple[torch.Tensor, Params]:
     s, d_in, nh, conv_dim = _dims(cfg)
     bsz = u.shape[0]
     g, hp = s.n_groups, s.head_dim

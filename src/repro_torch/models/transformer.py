@@ -163,6 +163,12 @@ def cast_params(cfg: ArchConfig, params: ParamTree) -> ParamTree:
             tree[k] = v.map(cast)
         else:
             tree[k] = cast(v)
+    from ..launch import spmd
+    for k, v in tree.items():
+        if k not in ("blocks", "enc_blocks") and spmd.any_dtensor(v):
+            # fsdp_params: the tree's other leaves gathered over the data
+            # axes once a step (the blocks' at each block's use)
+            tree[k] = spmd.gather_over_data(v)
     out = ParamTree(tree)
     out.compute_dtype = cdtype
     return out
@@ -243,7 +249,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             "norm": L.norm_init(cfg, cfg.d_model, pdtype, gen.device),
             "proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model, pdtype),
         }
-    return ParamTree(p).to(dev)
+    tree = ParamTree(p)
+    return tree if gen.device == dev else tree.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -252,21 +259,27 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _block_apply(cfg: ArchConfig, bp, x, enc=None, positions=None):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    from ..launch import spmd
+    if spmd.is_dtensor(x):
+        # fsdp_params: this block's weights gathered over the data axes
+        # for its use (recomputed under remat, as ZeRO-3 does)
+        bp = spmd.gather_over_data(bp)
+    aux = None
     for i, ch in enumerate(cfg.block_pattern):
         h = L.apply_norm(cfg, bp[f"norm{i}"], x)
         if ch == "A":
             if cfg.mla is not None:
-                x = x + L.mla_apply(cfg, bp[f"attn{i}"], h,
-                                    positions=positions)
+                x = x + _settle(L.mla_apply(cfg, bp[f"attn{i}"], h,
+                                            positions=positions), x)
             else:
-                x = x + L.attention_apply(cfg, bp[f"attn{i}"], h,
-                                          causal=True, positions=positions)
+                x = x + _settle(L.attention_apply(
+                    cfg, bp[f"attn{i}"], h, causal=True,
+                    positions=positions), x)
             if enc is not None:
                 hx = L.apply_norm(cfg, bp[f"xnorm{i}"], x)
-                x = x + L.attention_apply(cfg, bp[f"xattn{i}"], hx,
-                                          causal=False, kv_src=enc,
-                                          use_rope=False)
+                x = x + _settle(L.attention_apply(
+                    cfg, bp[f"xattn{i}"], hx, causal=False, kv_src=enc,
+                    use_rope=False), x)
         else:
             x = x + S.ssm_apply(cfg, bp[f"ssm{i}"], h)
         if _has_ffn(cfg, ch):
@@ -274,9 +287,11 @@ def _block_apply(cfg: ArchConfig, bp, x, enc=None, positions=None):
             if _use_moe(cfg, i):
                 y, a = L.moe_apply(cfg, bp[f"moe{i}"], hf)
                 x = x + y
-                aux = aux + a
+                aux = a if aux is None else aux + a
             else:
-                x = x + L.mlp_apply(cfg, bp[f"mlp{i}"], hf)
+                x = x + _settle(L.mlp_apply(cfg, bp[f"mlp{i}"], hf), x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
@@ -289,20 +304,87 @@ def _run_encoder(cfg: ArchConfig, params, frames: torch.Tensor):
     pos = torch.arange(s, device=x.device)[:, None]
     dim = torch.arange(cfg.d_model // 2, device=x.device)[None, :]
     ang = pos / torch.pow(10000.0, 2 * dim / cfg.d_model)
-    pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
-    x = x + pe.to(cdtype)
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(cdtype)
+    x = x + _replicated_like(pe, x)
+    from ..launch import spmd
     for bp in params["enc_blocks"]:
+        bp = spmd.gather_over_data(bp)
         h = L.apply_norm(cfg, bp["norm0"], x)
-        x = x + L.attention_apply(cfg, bp["attn0"], h, causal=False,
-                                  use_rope=False)
+        x = x + _settle(L.attention_apply(cfg, bp["attn0"], h, causal=False,
+                                          use_rope=False), x)
         hf = L.apply_norm(cfg, bp["fnorm0"], x)
-        x = x + L.mlp_apply(cfg, bp["mlp0"], hf)
+        x = x + _settle(L.mlp_apply(cfg, bp["mlp0"], hf), x)
     return L.apply_norm(cfg, params["enc_norm"], x)
+
+
+def _settle(y, x):
+    """A sublayer's output ``y`` in the residual stream ``x``'s
+    placements (rows sharded as the batch, replicated over the model
+    axis): over a distributed mesh the row-parallel products' partial
+    sums are all-reduced here, once, before the residual add (Megatron's
+    all-reduce), so every sublayer sees the same layout; else ``y``."""
+    from ..launch import spmd
+    if spmd.is_dtensor(y) and tuple(y.placements) != tuple(x.placements):
+        return y.redistribute(x.device_mesh, x.placements)
+    return y
+
+
+def _replicated_like(t: torch.Tensor, x) -> torch.Tensor:
+    """``t`` as a DTensor replicated over ``x``'s mesh when ``x`` is a
+    DTensor (a table computed on every rank), else ``t``."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(x):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _embed(table, tokens) -> torch.Tensor:
+    """Rows of ``table`` at ``tokens``.  Over a distributed mesh a local
+    region: a vocab-sharded table (``Shard(0)`` over the model axis) is
+    looked up on each rank for the ids in its row range, the others'
+    rows zero, and the partial rows summed once (an all-reduce of the
+    activations, not a gather of the table); a ``d_model``-sharded or
+    replicated table gives its columns, gathered.  The rows come back in
+    the tokens' batch placements, replicated over the model axis."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    axis = mesh.mesh_dim_names.index("model")
+    t_model = table.placements[axis]
+    t_pl = spmd.with_axes(mesh, tokens.placements, t_model,
+                          data=Replicate())
+    tok_pl = spmd.with_axes(mesh, tokens.placements)
+    if t_model == Shard(0):
+        n = table.shape[0] // mesh.shape[axis]
+        lo = mesh.get_local_rank("model") * n
+
+        def body(tab, tok):
+            idx = tok.long() - lo
+            ok = (idx >= 0) & (idx < n)
+            rows = tab[idx.clamp(0, n - 1)]
+            return torch.where(ok[..., None], rows, torch.zeros(
+                (), dtype=rows.dtype, device=rows.device))
+        out_pl = spmd.with_axes(mesh, tokens.placements, Partial())
+    else:
+        def body(tab, tok):
+            return tab[tok.long()]
+        out_pl = spmd.with_axes(mesh, tokens.placements,
+                                Shard(2) if t_model == Shard(1)
+                                else None)
+    rows = spmd.local_region(
+        body, mesh, (table, tokens), (t_pl, tok_pl), out_pl,
+        (spmd.grad_over_data(mesh, t_pl, tokens.placements), tok_pl))
+    return rows.redistribute(mesh, tok_pl)
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch: Mapping) -> Tuple:
     _, cdtype = _dt(cfg)
-    x = params["embed"][batch["tokens"].long()].to(cdtype)
+    x = _embed(params["embed"], batch["tokens"]).to(cdtype)
     if cfg.vision_tokens:
         vis = batch["patches"].to(cdtype) @ params["vis_proj"]
         x = torch.cat([vis, x], dim=1)
@@ -313,8 +395,10 @@ def _embed_inputs(cfg: ArchConfig, params, batch: Mapping) -> Tuple:
 
 
 def _head(cfg: ArchConfig, params, dtype) -> torch.Tensor:
-    return (params["embed"].T if cfg.tie_embeddings
+    from ..launch import spmd
+    head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(dtype)
+    return spmd.gather_over_data(head)
 
 
 def forward(cfg: ArchConfig, params: ParamTree, batch: Mapping,
@@ -391,20 +475,45 @@ def loss_fn(cfg: ArchConfig, params: ParamTree, batch: Mapping,
         # logits in the compute dtype; the kernel reads them in fp32, as
         # the reference's (h @ head).astype(float32)
         logits = h @ head
-        return cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                             lab.reshape(-1))
+        return _cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              lab.reshape(-1))
 
     loss = xent(x[:, :-1], labels[:, 1:])
     if cfg.mtp:
         # multi-token prediction: predict t+2 from (h_t, emb_{t+1})
         _, cdtype = _dt(cfg)
-        emb_next = params["embed"][tokens[:, 1:-1].long()].to(cdtype)
+        emb_next = _embed(params["embed"], tokens[:, 1:-1]).to(cdtype)
         h = L.apply_norm(cfg, params["mtp"]["norm"], x[:, :-2])
         h2 = torch.cat([h, emb_next], -1) @ params["mtp"]["proj"]
         loss = loss + 0.3 * xent(h2, labels[:, 2:])
     if cfg.moe is not None:
         loss = loss + 0.01 * torch.sum(torch.stack(auxs))
     return loss
+
+
+def _cross_entropy(logits, labels) -> torch.Tensor:
+    """The mean cross-entropy (:func:`~repro_torch.kernels.cross_entropy.
+    cross_entropy`).  Over a distributed mesh a local region: the logits'
+    rows stay sharded as the batch is, their vocab (column-sharded by the
+    head) is gathered over the model axis, so the kernel reads whole
+    rows; each rank's mean over its rows, divided by the data ranks the
+    rows are sharded over, leaves ``Partial`` over them (their sum is the
+    global mean: every rank holds as many rows)."""
+    from ..launch import spmd
+    if not spmd.is_dtensor(logits):
+        return cross_entropy(logits, labels)
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = logits.device_mesh
+    row_pl = lab_pl = spmd.with_axes(mesh, labels.placements)
+    n = 1
+    for i, pl in enumerate(row_pl):
+        if pl.is_shard():
+            n *= mesh.shape[i]
+    out_pl = tuple(Partial() if pl.is_shard() else Replicate()
+                   for pl in row_pl)
+    return spmd.local_region(
+        lambda lg, lb: cross_entropy(lg, lb) / n, mesh, (logits, labels),
+        (row_pl, lab_pl), out_pl)
 
 
 # ---------------------------------------------------------------------------
@@ -471,11 +580,13 @@ def decode_step(cfg: ArchConfig, params: ParamTree, state: Params,
     a new dict with ``pos + 1``."""
     params = cast_params(cfg, params)
     _, cdtype = _dt(cfg)
-    x = params["embed"][token.long()].to(cdtype)
+    x = _embed(params["embed"], token).to(cdtype)
     pos = state["pos"]
     enc = state.get("enc")
     new_caches = []
+    from ..launch import spmd
     for bp, cache in zip(params["blocks"], state["caches"]):
+        bp = spmd.gather_over_data(bp)
         new_cache = {}
         for i, ch in enumerate(cfg.block_pattern):
             h = L.apply_norm(cfg, bp[f"norm{i}"], x)
@@ -486,13 +597,13 @@ def decode_step(cfg: ArchConfig, params: ParamTree, state: Params,
                 else:
                     y, nc = L.attention_decode(cfg, bp[f"attn{i}"], h,
                                                cache[f"attn{i}"], pos)
-                x = x + y
+                x = x + _settle(y, x)
                 new_cache[f"attn{i}"] = nc
                 if enc is not None:
                     hx = L.apply_norm(cfg, bp[f"xnorm{i}"], x)
-                    x = x + L.attention_apply(cfg, bp[f"xattn{i}"], hx,
-                                              causal=False, kv_src=enc,
-                                              use_rope=False)
+                    x = x + _settle(L.attention_apply(
+                        cfg, bp[f"xattn{i}"], hx, causal=False, kv_src=enc,
+                        use_rope=False), x)
             else:
                 y, ns = S.ssm_decode(cfg, bp[f"ssm{i}"], h,
                                      cache[f"ssm{i}"])
@@ -504,7 +615,7 @@ def decode_step(cfg: ArchConfig, params: ParamTree, state: Params,
                     y, _ = L.moe_apply(cfg, bp[f"moe{i}"], hf)
                     x = x + y
                 else:
-                    x = x + L.mlp_apply(cfg, bp[f"mlp{i}"], hf)
+                    x = x + _settle(L.mlp_apply(cfg, bp[f"mlp{i}"], hf), x)
         new_caches.append(new_cache)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = (x[:, 0] @ _head(cfg, params, x.dtype)).to(torch.float32)

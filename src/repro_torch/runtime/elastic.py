@@ -8,8 +8,8 @@ model axis means re-partitioning weights, which is far more expensive
 than shrinking the data axis.
 
 This mirrors the CIMFlow planner's capacity logic (a chip's HBM must hold
-its parameter + optimizer-state shard); the planner (``core/planner.py``,
-not ported yet) supplies the per-arch byte estimates.
+its parameter + optimizer-state shard); :mod:`repro_torch.core.planner`
+supplies the per-arch byte estimates.
 """
 
 from __future__ import annotations

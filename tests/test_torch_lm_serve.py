@@ -138,9 +138,13 @@ def test_int8_kv_cache_serves():
     assert bool(torch.isfinite(out["logits"]).all())
 
 
-def test_production_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.main(["--reduced", "--device", "cpu", "--production-mesh"])
+def test_production_mesh_not_ported(capsys):
+    """``--production-mesh`` needs a process group of 256 ranks: without
+    one it names them and exits 1, with no fallback to the local mesh."""
+    capsys.readouterr()
+    assert S.main(["--reduced", "--device", "cpu", "--production-mesh"]) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and "exactly 256 ranks" in err and "(16, 16)" in err
 
 
 def test_decode_step_casts_once():

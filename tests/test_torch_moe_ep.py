@@ -315,7 +315,7 @@ def test_local_mesh_and_refusals():
     assert data_axes_of(mesh) == ("data",)
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh((2, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="exactly 256 ranks"):
         make_production_mesh()
     cfg = treduced(TARCHS["olmoe-1b-7b"])
     x = torch.zeros(1, 2, cfg.d_model)

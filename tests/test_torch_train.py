@@ -327,14 +327,16 @@ def test_train_cli_resume_bit_identical(tmp_path, capsys):
 
 def test_train_cli_log_format_and_refusals(capsys):
     """The reference's log lines (every ``--log-every`` steps and the
-    last); ``--production-mesh`` raises as ``launch.serve`` does; a
+    last); ``--production-mesh`` exits 1 without a 256-rank process
+    group, as ``launch.serve`` does; a
     simulated chip loss plans over the one-device mesh as the
     reference's ``plan_remesh`` does there (no survivor: it raises)."""
     lines = _main(_ARGS + ["--steps", "5", "--log-every", "2"], capsys)
     assert [int(line.split()[1]) for line in lines[:-1]] == [0, 2, 4]
     assert all(_STEP.fullmatch(line) for line in lines[:-1]), lines
     assert _DONE.fullmatch(lines[-1])
-    with pytest.raises(NotImplementedError, match="production-mesh"):
-        train.main(_ARGS + ["--steps", "1", "--production-mesh"])
+    assert train.main(_ARGS + ["--steps", "1", "--production-mesh"]) == 1
+    out, err = capsys.readouterr()
+    assert not out and "--production-mesh" in err and "256 ranks" in err
     with pytest.raises(ValueError, match="cannot host"):
         train.main(_ARGS + ["--steps", "2", "--simulate-loss", "1"])
