@@ -8,8 +8,9 @@ script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, five of them, the grouped GEMM's two among them, each in its
-   own thread, all started together) while Triton
+   source, six of them, the grouped GEMM's two and the flash attention
+   among them, each in its own thread, all started together) while
+   Triton
    compiles the SSD step's variants phase 10 launches
    (:func:`build_triton_kernels`) and the training kernels' first
    variants (:func:`build_train_kernels`), timed as set-up;
@@ -225,27 +226,56 @@ script exits non-zero):
    ``cost_cell`` on the local (1, 1) mesh for 13a's shapes and ``python
    -m repro_torch.launch.serve --production-mesh`` start on the host in
    the background, away from the card; (a) phi4-mini-3.8b at full depth
-   through ``steps.make_prefill_step`` at B 4 x S 2048 (naive attention)
-   and B 1 x S 32768 (the blockwise loop): finite last-token logits, the
-   median host ms of the timed calls, prefill tokens/s, peak device
-   memory (at S 32768 under the fp32 parameters, their bf16 cast and the
-   26.2 GB of (1, 32768, 200064) fp32 logits the last-token head
-   avoids), one traced call's device-busy ms; (b) olmoe-1b-7b at full
+   through ``steps.make_prefill_step`` at B 4 x S 2048 and B 1 x S 32768,
+   the attention core on the flash-attention kernel (its launches counted
+   over the timed calls: one an attention layer a call): finite
+   last-token logits, the median host ms of the timed calls, prefill
+   tokens/s, peak device memory (at S 32768 under the fp32 parameters,
+   their bf16 cast and the 26.2 GB of (1, 32768, 200064) fp32 logits the
+   last-token head avoids), one traced call's device-busy ms; (b)
+   olmoe-1b-7b at full
    depth, B 4 x S 2048, under the local mesh: 48 grouped-GEMM launches,
    every one on the wgmma route; (c) phi4-mini and olmoe at 2 layers,
    full width, B 4 x S 64: the prefill step's last-token logits on the
    card against the prompt stepped through the decode step on the card
    and against the prefill step on the CPU (``LOGIT_TOL``, MoE rows that
-   route differently left out, ``MOE_CHECKED_MIN`` held); (d) each 13a
-   call's device-busy time at least its cell's H100 ``compute_s``, the
-   CLI's cell ``ok`` with its roofline terms; (e) ``plan_parallelism``
-   on the H100 preset at train_4k for every arch, and ``--production-mesh``
-   refused with the 256-rank message.
+   route differently left out, ``MOE_CHECKED_MIN`` held; the card's
+   prefill launches the flash-attention kernel once an attention layer);
+   (d) each 13a call's device-busy time at least its cell's H100
+   ``compute_s`` (where it is not: at least ``compute_s`` less the FLOPs
+   of the masked attention blocks the dry run walks and the kernel
+   skips), the CLI's cell ``ok`` with its roofline terms; (e)
+   ``plan_parallelism`` on the H100 preset at train_4k for every arch,
+   and ``--production-mesh`` refused with the 256-rank message.
+
+14. the flash-attention kernel (:func:`flash_phase`), run before phase 10:
+   its forward and backward (``kernels/flash_attention.py``,
+   ``csrc/flash_attention.cu``) at ``FA_CASES`` (phi4-mini at B 4 x S
+   2048 and B 1 x S 32768, h2o-danube's D 120 under its 4096 window at S
+   8192, olmoe's G 1, whisper's encoder at S 1500 and its cross-attention
+   at 448 x 1500, a deepseek-v3 MLA layer at H 128, D 192, Dv 128, S 4096
+   with v a slice of wider rows, a sequence-parallel rank's rows at
+   ``q_pos0`` 8192, olmoe in fp32): O within ``FA_TOL_F32`` of the plain
+   masked softmax on fp32 upcasts and ``FA_TOL_REF`` of the card's path
+   before the kernel in the reference's dtypes, lse within
+   ``FA_TOL_LSE``, dq, dk and dv within ``FA_TOL_GRAD`` of autograd of
+   the fp32 plain version; planted faults (each row's last 64 keys
+   dropped; the window one 64-key block short) refused at every case of
+   4096 rows and up; the forward and backward captured in one CUDA graph
+   and replayed equal to eager calls; each case's forward and forward +
+   backward timed by graph replay beside its bound ``max(FLOPs / 989e12,
+   bytes / 3.35e12)`` over the valid pairs, the plain versions at the
+   reference's 512 x 1024 blocks, the card's path before the kernel, and
+   ``scaled_dot_product_attention``'s flash backend where it takes the
+   case.  11b, 11c, 13a and 13c count the kernel's launches on their
+   paths and assert them.
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 10d's, the decode kernels' 10c's, the training kernels' 11c's, the
-grouped GEMM's 10c's, 11c's and 13b's.  Each record's times are device times
+grouped GEMM's 10c's, 11c's and 13b's, the flash attention's 11c's,
+13a's and 13c's (a forward one launch, a backward three).  Each record's
+times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
 cold from HBM, as a decode step reads it (``previous_ms``: the tile
@@ -258,7 +288,8 @@ AdamW step (norm and every leaf's update) over phi4-mini's tree at 8
 layers with fp32 moments; the grouped GEMM's forward, dx and dw summed
 at olmoe's training buffer (up projection; ``previous_ms``: the same on
 the tile route, ``grouped_gemm.cu``; ``decode_*``: the forward at its
-decode buffer).  The
+decode buffer); the flash attention's forward and backward at phi4-mini's
+11c shape (``fwd_*``: the forward alone).  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -272,6 +303,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -527,16 +559,13 @@ GG_SLOWER_MAX = 0.03
 # phase 13: the prefill step (launch.steps.make_prefill_step) and the dry
 # run (launch.dryrun) against the card.  13a: phi4-mini at full depth,
 # (batch, seq, timed calls, a warm-up call first, layers of the traced
-# call) on the naive attention path and on the blockwise one (prefill_32k's
-# sequence at batch 1).  The blockwise loop is plain PyTorch: about 1.8
-# million launches a call (45-53 s at full depth on an H100 80GB HBM3 at
-# 700 W), and a profiler trace of them takes minutes to read back; so
-# S 32768 times one full-depth call and traces a call of its first layer
-# (13d holds that trace against the one-layer cell).  The peak at S 32768
-# must stay below the fp32 parameters, their bf16 cast and the (1, 32768,
-# 200064) fp32 logits the last-token head avoids (PREFILL_LOGITS_BYTES)
+# call; None: full depth) at B 4 x S 2048 and at prefill_32k's sequence
+# at batch 1, the attention core on the flash-attention kernel at both
+# (one launch an attention layer a call).  The peak at S 32768 must stay
+# below the fp32 parameters, their bf16 cast and the (1, 32768, 200064)
+# fp32 logits the last-token head avoids (PREFILL_LOGITS_BYTES)
 PREFILL_ARCH = "phi4-mini-3.8b"
-PREFILL_SHAPES = [(4, 2048, 3, True, None), (1, 32768, 1, False, 1)]
+PREFILL_SHAPES = [(4, 2048, 3, True, None), (1, 32768, 3, True, None)]
 PREFILL_LOGITS_BYTES = 1 * 32768 * 200064 * 4
 # 13b: olmoe-1b-7b at full depth under the local mesh: 3 grouped-GEMM
 # launches an MoE layer, every one on the wgmma route
@@ -560,6 +589,68 @@ PREFILL_AGREE_BATCH, PREFILL_AGREE_SEQ = 4, 64
 DRYRUN_CLI = ["--arch", "phi4-mini-3.8b", "--shape", "prefill_32k",
               "--out", "build/dryrun.json", "--force"]
 DRYRUN_TIMEOUT = 400
+# phase 14: the flash-attention kernel (kernels/flash_attention.py) against
+# its plain versions: (label, B, Sq, Sk, KV, G, D, Dv, causal, window,
+# q_pos0, dtype).  phi4-mini at 11c's and 13a's shapes, h2o-danube's
+# D 120 under its 4096 window, olmoe's G 1, whisper's encoder and its
+# decoder's cross-attention (non-causal, Sq != Sk), one deepseek-v3 MLA
+# layer (H 128, D 192, Dv 128, v a slice of a wider row), the rows of
+# sequence-parallel rank 2 of 4 at S 16384 (q_pos0 8192), and olmoe in
+# fp32 (13c's compute dtype)
+FA_CASES = [
+    ("phi4-mini B4 S2048", 4, 2048, 2048, 8, 3, 128, 128, True, None, 0,
+     "bfloat16"),
+    ("phi4-mini B1 S32768", 1, 32768, 32768, 8, 3, 128, 128, True, None, 0,
+     "bfloat16"),
+    ("danube S8192 w4096", 1, 8192, 8192, 8, 4, 120, 120, True, 4096, 0,
+     "bfloat16"),
+    ("olmoe G1 B4 S2048", 4, 2048, 2048, 16, 1, 128, 128, True, None, 0,
+     "bfloat16"),
+    ("whisper encoder S1500", 4, 1500, 1500, 12, 1, 64, 64, False, None, 0,
+     "bfloat16"),
+    ("whisper cross 448x1500", 4, 448, 1500, 12, 1, 64, 64, False, None, 0,
+     "bfloat16"),
+    ("deepseek-v3 MLA S4096", 1, 4096, 4096, 128, 1, 192, 128, True, None, 0,
+     "bfloat16"),
+    ("phi4-mini q_pos0 8192", 1, 4096, 16384, 8, 3, 128, 128, True, None,
+     8192, "bfloat16"),
+    ("olmoe fp32 B4 S1024", 4, 1024, 1024, 16, 1, 128, 128, True, None, 0,
+     "float32"),
+]
+# the kernels line's case: phi4-mini at 11c's shape, forward + backward
+FA_MAIN = "phi4-mini B4 S2048"
+# kernel vs plain, |err| <= tol[0] * rms(plain) + tol[1] * |plain|, by
+# dtype.  FA_TOL_F32 holds O to the plain masked softmax on fp32
+# upcasts of the same inputs (bf16: the kernel rounds P
+# before P V and its output, as the reference rounds its probabilities);
+# FA_TOL_REF holds O to the plain version in the reference's dtypes (the
+# card's path before the kernel: bf16 scores, the blockwise loop's bf16
+# running output, far from the fp32 result at long rows); FA_TOL_GRAD
+# holds dq, dk and dv to autograd of the fp32 plain version (bf16: the
+# backward's delta = rowsum(dO O) reads the bf16-rounded O, as
+# FlashAttention-2's does, and a row that sees few keys, whose exact dS
+# is near 0, keeps that rounding's share: the early rows of a long
+# sequence, where the gradients' rms is small, set the share);
+# FA_TOL_GRAD_PLAIN holds them to the plain version of the kernel's
+# backward (flash_attention_bwd_ref on the kernel's O and lse, fp32
+# arithmetic, at the reference's blocks: the same algorithm in another
+# order and blocking).  FA_TOL_LSE: (atol, rtol) of lse against the fp32
+# plain version.  Each rms share is about 3x the largest measured (fp32
+# O: 5x) on an H100 (PERF.md section 6).  A planted fault (each row's
+# last 64 keys dropped, or the window one 64-key block short) must fail
+# FA_TOL_F32 at every case of 4096 rows and up.
+FA_TOL_F32 = {"bfloat16": (0.2, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+FA_TOL_REF = {"bfloat16": (1.0, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+FA_TOL_GRAD = {"bfloat16": (0.75, 2.0 ** -6), "float32": (1e-4, 1e-5)}
+FA_TOL_GRAD_PLAIN = {"bfloat16": (0.1, 2.0 ** -6), "float32": (2e-5, 1e-5)}
+FA_TOL_LSE = (2e-5, 1e-6)
+FA_FAULT_MIN_S = 4096
+# the plain versions' blocks in phase 14's timings (the reference's)
+FA_PLAIN_BLOCKS = (512, 1024)
+# the fp32 autograd reference's chunk: query rows a chunk with at most
+# this many fp32 scores
+FA_REF_SCORES = 5e8
+FA_REPS = 5
 
 
 def log(*a):
@@ -2958,6 +3049,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.data import make_batch
     from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -2980,8 +3072,11 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
                                          lr_peak=TRAIN_LR, warmup=1,
                                          total_steps=10)
         t0 = time.perf_counter()
+        FA.reset_launches()
         with meshctx.use_mesh(mesh, data_axes=("data",)):
             tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
+        if label == "card":
+            flash = dict(FA.launches_by_pass)
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -3003,10 +3098,14 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
            "grad_norm_cpu": mc["grad_norm"], "lr": lr,
            "loss_rel_gap": loss_gap, "norm_rel_gap": norm_gap,
            "update_gap_over_reach": worst, "far_share": far / total,
-           "card_s": t_dev, "cpu_s": t_cpu,
+           "card_s": t_dev, "cpu_s": t_cpu, "flash_launches": flash,
            "wall_s": time.perf_counter() - t_start}
+    # the flash-attention kernel: a forward an attention layer, again in
+    # the block's recompute under remat, and a backward
+    n_attn = attention_layers(cfg) if dev.type == "cuda" else 0
     ok = (loss_gap <= TRAIN_TOL and norm_gap <= TRAIN_TOL and worst <= 1.0
-          and far / total <= TRAIN_FLIP_MAX and mk["lr"] == mc["lr"])
+          and far / total <= TRAIN_FLIP_MAX and mk["lr"] == mc["lr"]
+          and flash == {"fwd": 2 * n_attn, "bwd": n_attn})
     if not ok:
         raise AssertionError(f"{name} train step, card against CPU: {row}")
     return row
@@ -3025,6 +3124,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import SyntheticStream
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.launch import meshctx
     from repro_torch.launch import steps as lm_steps, train as lm_train
@@ -3054,6 +3154,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
     KX.cross_entropy.launches = KA.grad_norm.launches = 0
     KA.adamw_step.launches = 0
     GG.reset_launches()
+    FA.reset_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3065,6 +3166,8 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "median_ms": 1e3 * float(np.median(times)),
            "leaves": len(tree_util.leaves(params)),
            "moe_layers": moe_layers(cfg),
+           "attention_layers": attention_layers(cfg),
+           "flash_launches": dict(FA.launches_by_pass),
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
            "grouped_gemm_launches": launches[3],
@@ -3085,9 +3188,11 @@ def check_training(label: str, row: dict) -> None:
     """Finite losses that fall, and the kernels' launches: 2 cross-entropy
     launches a step (forward, backward; 4 with MTP, which no
     configuration here has), 1 norm and one update launch a leaf a step,
-    and 12 grouped-GEMM launches an MoE layer a step (3 forward, 3 in the
+    12 grouped-GEMM launches an MoE layer a step (3 forward, 3 in the
     block's recompute under remat, a dx and a dw for each of the 3 in the
-    backward), every one on ``grouped_gemm_sm90.cu`` (bf16)."""
+    backward), every one on ``grouped_gemm_sm90.cu`` (bf16), and 2
+    flash-attention forwards (one in the recompute) and a backward an
+    attention layer a step."""
     import math
     losses, steps = row["losses"], row["steps"]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
@@ -3103,6 +3208,11 @@ def check_training(label: str, row: dict) -> None:
                              f"update, grouped GEMM) {got}, expected "
                              f"{want}")
     gg_routes_check(label, row["grouped_gemm_routes"], want[3])
+    n = steps * row["attention_layers"]
+    if row["flash_launches"] != {"fwd": 2 * n, "bwd": n}:
+        raise AssertionError(f"{label}: flash-attention calls "
+                             f"{row['flash_launches']}, expected {2 * n} "
+                             f"forwards and {n} backwards")
 
 
 def train_full_phase(device, seed: int = 0) -> list:
@@ -3117,6 +3227,7 @@ def train_full_phase(device, seed: int = 0) -> list:
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import depth_variant
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.launch import train as lm_train
 
@@ -3134,6 +3245,7 @@ def train_full_phase(device, seed: int = 0) -> list:
             KX.cross_entropy.launches = KA.grad_norm.launches = 0
             KA.adamw_step.launches = 0
             GG.reset_launches()
+            FA.reset_launches()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lm_train.main(argv)
@@ -3153,6 +3265,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "grouped_gemm_launches": GG.ragged_dot.launches,
                    "grouped_gemm_routes": dict(GG.launches_by_route),
                    "moe_layers": moe_layers(cfg),
+                   "attention_layers": attention_layers(cfg),
+                   "flash_launches": dict(FA.launches_by_pass),
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
                                 TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
@@ -3179,7 +3293,8 @@ def train_full_phase(device, seed: int = 0) -> list:
             f"{row['xent_launches']}, norm {row['norm_launches']}, update "
             f"{row['update_launches']} ({row['leaves']} leaves), grouped "
             f"GEMM {row['grouped_gemm_launches']} (by route "
-            f"{row['grouped_gemm_routes']}); "
+            f"{row['grouped_gemm_routes']}), flash attention "
+            f"{row['flash_launches']}; "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
@@ -3799,9 +3914,11 @@ def prefill_full_phase(device, seed: int = 0) -> list:
     """Phase 13a: phi4-mini-3.8b at full depth (32 layers) through
     ``steps.make_prefill_step`` at ``PREFILL_SHAPES`` (random weights
     from ``seed``, the launchers' local mesh): last-token logits finite,
-    the median host ms of the timed calls, prefill tokens/s, the peak
-    device memory, and one ``torch.profiler`` trace of a call at the
-    shape's traced depth (its device-busy ms).  At S 32768 the peak must
+    the flash-attention kernel's launches over the timed calls (one an
+    attention layer a call, no backward), the median host ms of the timed
+    calls, prefill tokens/s, the peak device memory, and one
+    ``torch.profiler`` trace of a call at the shape's traced depth (its
+    device-busy ms).  At S 32768 the peak must
     stay under the fp32 parameters, their bf16 cast and
     ``PREFILL_LOGITS_BYTES``."""
     import statistics
@@ -3809,6 +3926,7 @@ def prefill_full_phase(device, seed: int = 0) -> list:
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.configs.base import depth_variant
     from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import meshctx, steps as lm_steps
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
@@ -3826,8 +3944,15 @@ def prefill_full_phase(device, seed: int = 0) -> list:
                 cfg, dev, ShapeConfig("prefill", s, b, "prefill"))
             batch = {"tokens": torch.from_numpy(make_batch(
                 cfg, b, s, seed=seed, step=0)["tokens"]).to(dev)}
+            FA.reset_launches()
             logits, ms, peak = prefill_timed(fn, params, batch, reps, warm,
                                              dev)
+            flash = dict(FA.launches_by_pass)
+            want = (reps + int(warm)) * attention_layers(cfg)
+            if flash != {"fwd": want, "bwd": 0}:
+                raise AssertionError(f"prefill B {b} S {s}: flash-attention "
+                                     f"calls {flash}, expected {want} "
+                                     f"forwards")
             if tuple(logits.shape) != (b, cfg.vocab) or \
                     logits.dtype != torch.float32 or \
                     not bool(torch.isfinite(logits).all()):
@@ -3850,6 +3975,7 @@ def prefill_full_phase(device, seed: int = 0) -> list:
                    "seq": s, "traced_layers": traced_layers or cfg.n_layers,
                    "calls_ms": ms, "median_ms": med,
                    "tok_s": b * s / (med / 1e3), "peak_gb": peak,
+                   "flash_launches": flash,
                    "profiled_wall_ms": wall, "device_busy_ms": busy,
                    "top_device_events": top,
                    "wall_s": time.perf_counter() - t_start}
@@ -3866,6 +3992,7 @@ def prefill_full_phase(device, seed: int = 0) -> list:
                 f"{peak:.2f} GB"
                 + (f" (limit {row['peak_limit_gb']:.2f} GB)" if s == 32768
                    else "")
+                + f"; flash attention {flash['fwd']} launches"
                 + f"; one traced call ({row['traced_layers']} layers): "
                 f"device busy {busy:.1f} of {wall:.1f} ms "
                 f"({100 * busy / wall:.1f}%); {row['wall_s']:.1f} s in all")
@@ -3935,6 +4062,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     import torch
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import meshctx, steps as lm_steps
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
@@ -3959,8 +4087,14 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     r_card, r_dec, r_cpu = [], [], []
     with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
         fn_card, _ = lm_steps.make_prefill_step(cfg, dev, shape)
+        FA.reset_launches()
         with routing_recorded(r_card):
             card = fn_card(cast, {"tokens": tokens.to(dev)}).cpu()
+        flash = dict(FA.launches_by_pass)
+        want = attention_layers(cfg) if dev.type == "cuda" else 0
+        if flash != {"fwd": want, "bwd": 0}:
+            raise AssertionError(f"{name} prefill: flash-attention calls "
+                                 f"{flash}, expected {want} forwards")
         fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
         with routing_recorded(r_cpu):
             host = fn_cpu(cpu, {"tokens": tokens})
@@ -3989,7 +4123,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         return rows
 
     out = {"arch": name, "layers": layers, "batch": b, "seq": s,
-           "compute_dtype": cfg.compute_dtype}
+           "compute_dtype": cfg.compute_dtype, "flash_launches": flash}
     for label, other, routes, per_step in (("decode", stepped, r_dec, True),
                                            ("cpu", host, r_cpu, False)):
         keep = ~flipped(r_card, routes, per_step)
@@ -4021,6 +4155,8 @@ def dryrun_check(done: dict, prefill_rows: list, card: str) -> dict:
     unfused upper bound it is; the CLI's (16, 16) cell ``ok`` with its
     roofline terms; ``--production-mesh`` refused with the 256-rank
     message."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[PREFILL_ARCH]
     rc, so, se, secs = done["cells"]
     if rc != 0:
         raise AssertionError(f"cost_cell: exit {rc}: {se[-3000:]}")
@@ -4037,14 +4173,23 @@ def dryrun_check(done: dict, prefill_rows: list, card: str) -> dict:
         r = rec["roofline"]
         busy_s = row["device_busy_ms"] / 1e3
         share = r["compute_s"] / busy_s
+        # the dry run walks every attention block, the masked ones too;
+        # the kernel skips those: compute_s less the masked pairs' FLOPs
+        b, s = row["batch"], row["seq"]
+        masked = row["traced_layers"] * 2.0 * b * cfg.n_heads * (
+            s * s - fa_pairs(s, s, True, cfg.sliding_window, 0)) \
+            * 2 * cfg.hd
+        valid_s = r["compute_s"] - masked / PEAK_BF16_OPS
         out["cells"].append({"batch": row["batch"], "seq": row["seq"],
                              "layers": row["traced_layers"],
                              "flops": rec["cost"]["flops"],
                              "bytes": rec["cost"]["bytes accessed"],
                              "compute_s": r["compute_s"],
+                             "compute_s_valid_blocks": valid_s,
                              "memory_s_upper": r["memory_s"],
                              "device_busy_s": busy_s,
                              "compute_over_busy": share,
+                             "compute_valid_over_busy": valid_s / busy_s,
                              "live_gib": rec["memory"]["live_gib"],
                              "count_s": rec["compile_s"]})
         log(f"  cost_cell (1, 1) B {row['batch']} x S {row['seq']}, "
@@ -4053,12 +4198,18 @@ def dryrun_check(done: dict, prefill_rows: list, card: str) -> dict:
             f"{r['compute_s']:.4f} s = {100 * share:.1f}% of the traced "
             f"call's device-busy {busy_s:.4f} s; memory_s {r['memory_s']:.4f}"
             f" s (an upper bound: unfused bytes); counted in "
-            f"{rec['compile_s']} s [{card}]")
+            f"{rec['compile_s']} s; from the valid blocks' FLOPs "
+            f"{valid_s:.4f} s = {100 * valid_s / busy_s:.1f}% [{card}]")
         if busy_s < r["compute_s"]:
-            raise AssertionError(f"B {row['batch']} S {row['seq']}: device "
-                                 f"busy {busy_s} s < compute_s "
-                                 f"{r['compute_s']} s: the FLOP count is "
-                                 f"wrong")
+            log(f"  B {row['batch']} S {row['seq']}: device busy {busy_s} s"
+                f" < compute_s {r['compute_s']} s, which counts the masked "
+                f"attention blocks the kernel skips: held against "
+                f"{valid_s} s from the valid blocks")
+            if busy_s < valid_s:
+                raise AssertionError(f"B {row['batch']} S {row['seq']}: "
+                                     f"device busy {busy_s} s < compute_s "
+                                     f"{valid_s} s of the valid blocks: the "
+                                     f"FLOP count is wrong")
     full = {(r["batch"], r["seq"]): r for r in prefill_rows}
     for rec, (b, s, _, _, layers) in zip(
             cells[len(prefill_rows):],
@@ -4125,6 +4276,388 @@ def planner_rows() -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+
+def needed_share(got, want, rtol: float) -> float:
+    """The least rms share ``scale`` with which ``got`` passes
+    :func:`scaled_within` ``(got, want, scale, rtol)``."""
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    excess = float(((g - w).abs() - rtol * w.abs()).max())
+    return max(excess, 0.0) / rms if rms else float(excess > 0)
+
+
+def attention_layers(cfg) -> int:
+    """Attention sublayers of ``cfg``'s decoder blocks (each launches the
+    flash-attention kernel once a forward on the card)."""
+    return cfg.n_blocks * cfg.block_pattern.count("A")
+
+
+def fa_pairs(sq: int, sk: int, causal: bool, window, q_pos0: int) -> int:
+    """The (query row, key) pairs of one head that the mask lets through."""
+    import numpy as np
+    pos = q_pos0 + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
+    lo = (np.maximum(0, pos - window + 1) if window is not None
+          else np.zeros(sq, dtype=np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fa_bound(case) -> dict:
+    """``{"fwd" | "fwd_bwd": (bound ms, "operations" | "bytes", FLOPs)}``
+    of a phase 14 case: FLOPs 2·pairs·(D + Dv) forward and 2·pairs·(3D +
+    2Dv) more backward over the valid pairs of every query head, against
+    the bf16 tensor-core peak (fp32 inputs: the fp32 peak); bytes q, k, v
+    and O once, and dO, dq, dk and dv in the backward, at the HBM rate."""
+    _, b, sq, sk, kvh, g, d, dv, causal, window, q_pos0, dt = case
+    pairs = b * kvh * g * fa_pairs(sq, sk, causal, window, q_pos0)
+    elem = 2 if dt == "bfloat16" else 4
+    peak = PEAK_BF16_OPS if dt == "bfloat16" else PEAK_F32_OPS
+    f_fwd = 2.0 * pairs * (d + dv)
+    f_bwd = 2.0 * pairs * (3 * d + 2 * dv)
+    io = elem * (b * sq * kvh * g * (d + dv) + b * sk * kvh * (d + dv))
+    out = {}
+    for name, f, n_bytes in (("fwd", f_fwd, io),
+                             ("fwd_bwd", f_fwd + f_bwd, 2 * io)):
+        t_o, t_b = f / peak, n_bytes / PEAK_BYTES
+        out[name] = (1e3 * max(t_o, t_b),
+                     "operations" if t_o >= t_b else "bytes", f)
+    return out
+
+
+def fa_fp32_reference(q, k, v, do, causal: bool, window, q_pos0: int):
+    """``(O, lse, dq, dk, dv)`` of the plain masked softmax attention on
+    fp32 upcasts of the inputs, the gradients by autograd, a chunk of
+    query rows at a time (at most ``FA_REF_SCORES`` scores; each chunk's
+    keys cut to those its rows may see, the rest weighing exactly 0)."""
+    import torch
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    kf, vf = (t.detach().to(torch.float32, copy=True).requires_grad_()
+              for t in (k, v))
+    rows = max(64, int(FA_REF_SCORES // (b * kvh * g * sk)) // 64 * 64)
+    outs, lses, dqs = [], [], []
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        p0, p1 = q_pos0 + r0, q_pos0 + r1 - 1
+        k0 = max(0, p0 - window + 1) if window is not None else 0
+        k1 = min(sk, p1 + 1) if causal else sk
+        qc = q[:, r0:r1].detach().to(torch.float32,
+                                     copy=True).requires_grad_()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc, kf[:, k0:k1]) \
+            / math.sqrt(d)
+        qi = torch.arange(p0, p1 + 1, device=q.device)[:, None]
+        ki = torch.arange(k0, k1, device=q.device)[None, :]
+        ok = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok &= ki <= qi
+        if window is not None:
+            ok &= ki > qi - window
+        s = s.masked_fill(~ok, -math.inf)
+        lses.append(torch.logsumexp(s, -1).detach())
+        o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1),
+                         vf[:, k0:k1])
+        o.backward(do[:, r0:r1].float())
+        outs.append(o.detach())
+        dqs.append(qc.grad)
+        del s, o
+    return (torch.cat(outs, 1), torch.cat(lses, -1), torch.cat(dqs, 1),
+            kf.grad, vf.grad)
+
+
+def fa_before(q, k, v, causal: bool, window, q_pos0: int):
+    """The card's attention core before the kernel, in the reference's
+    dtypes: ``_gqa_scores_ctx`` up to ``FLASH_THRESHOLD`` keys, the
+    blockwise loop above."""
+    from types import SimpleNamespace
+    from repro_torch.models import layers as L
+    mfn = L._mask_fn(SimpleNamespace(sliding_window=window), causal)
+    if k.shape[1] > L.FLASH_THRESHOLD:
+        return L.flash_attention(q, k, v, mfn, q_pos0)
+    return L._gqa_scores_ctx(q, k, v, mfn, q_pos0)
+
+
+def once_ms(fn, device) -> float:
+    """ms of one call of ``fn()`` after a warm-up call: CUDA events on
+    the card (a plain version's many launches issued from Python), the
+    host clock on the CPU (a rehearsal only)."""
+    if str(device).startswith("cuda"):
+        return cuda_ms(fn, 1)
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fa_sdpa(q, k, v, do, causal: bool):
+    """``(forward, forward + backward)`` closures of
+    ``scaled_dot_product_attention(..., is_causal=causal, enable_gqa=True)``
+    under its flash backend on the same tensors as (B, H, S, D) views, and
+    its output in the kernel's layout; ``None`` where the backend refuses
+    them."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, sq, kvh, g, d = q.shape
+    qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    doh = do.reshape(b, sq, kvh * g, -1).transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+    def fwd_bwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+        out.backward(doh)
+
+    try:
+        out = fwd()
+        fwd_bwd()
+    except RuntimeError:
+        return None
+    return fwd, fwd_bwd, out.transpose(1, 2).reshape(b, sq, kvh, g, -1)
+
+
+def fa_inputs(case, gen, device) -> tuple:
+    """q, k, v and O's gradient of a phase 14 case, normal draws from
+    ``gen``; an MLA case's v is the value half of wider rows (as
+    ``_mla_expand`` slices it from ``wkv_b``'s output)."""
+    import torch
+    _, b, sq, sk, kvh, g, d, dv, _, _, _, dt = case
+    dtype = getattr(torch, dt)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q = draw(b, sq, kvh, g, d)
+    k = draw(b, sk, kvh, d)
+    v = draw(b, sk, kvh, dv) if dv == d else \
+        draw(b, sk, kvh, d - 64 + dv)[..., d - 64:]
+    return q, k, v, draw(b, sq, kvh, g, dv)
+
+
+def fa_graph_check(case, other, gen, device, failures) -> dict:
+    """The forward and backward of ``case`` captured in one CUDA graph and
+    replayed 3 times: each replay equal, bit for bit, to eager calls (the
+    kernels are deterministic: no floating atomics); before the last
+    replay an eager forward and backward of ``other``'s shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    causal, window, q_pos0 = case[8:11]
+    q, k, v, do = fa_inputs(case, gen, device)
+
+    def step():
+        o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal, window,
+                                             q_pos0)
+        return (o, lse) + FA.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, window, q_pos0)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    same = []
+    for r in range(3):
+        if r == 2:
+            oq, ok_, ov, odo = fa_inputs(other, gen, device)
+            oc, ow, op = other[8:11]
+            oo, ol = FA.flash_attention_fwd_cuda(oq, ok_, ov, oc, ow, op)
+            FA.flash_attention_bwd_cuda(oq, ok_, ov, oo, ol, odo, oc, ow, op)
+            del oq, ok_, ov, odo, oo, ol
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, e) for a, e in zip(outs, eager)))
+    del graph
+    if not all(same):
+        failures.append(f"graph check: replays equal to eager {same}")
+    log(f"  {case[0]}: forward + backward captured in one CUDA graph: 3 "
+        f"replays equal to eager calls, the last after a {other[0]} call: "
+        f"{same}")
+    return {"case": case[0], "other": other[0], "replays_equal": same}
+
+
+def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
+    """Phase 14: the flash-attention kernel against its plain versions at
+    ``cases``: O within ``FA_TOL_F32`` of the plain masked softmax on fp32
+    upcasts and ``FA_TOL_REF`` of the card's path before the kernel in
+    the reference's dtypes, lse within ``FA_TOL_LSE``, dq, dk and dv within
+    ``FA_TOL_GRAD`` of autograd of the fp32 plain version; planted faults
+    refused at ``FA_FAULT_MIN_S`` rows and up; a graph-replay check; each
+    case timed by CUDA-graph replay (forward, forward + backward) beside
+    its bound, the plain versions (:func:`flash_attention_fwd_ref` and
+    ``_bwd_ref`` at the reference's blocks; the path before the kernel)
+    and SDPA's flash backend where it takes the case.  Launches made here
+    compare; they are not counted.  On the CPU (a rehearsal) the plain
+    versions stand in for the kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows, failures = [], []
+    t_phase = time.perf_counter()
+    for case in cases:
+        label, b, sq, sk, kvh, g, d, dv, causal, window, q_pos0, dt = case
+        t0 = time.perf_counter()
+        q, k, v, do = fa_inputs(case, gen, dev)
+
+        def fwd(qp=q_pos0, win=window):
+            if card:
+                return FA.flash_attention_fwd_cuda(q, k, v, causal, win, qp)
+            return FA.flash_attention_fwd_ref(q, k, v, causal, win, qp)
+
+        def fwd_bwd():
+            if card:
+                return FA.flash_attention_bwd_cuda(q, k, v, *fwd(), do,
+                                                   causal, window, q_pos0)
+            return FA.flash_attention_bwd_ref(q, k, v, *fwd(), do, causal,
+                                              window, q_pos0)
+
+        t_first = time.perf_counter()
+        o, lse = fwd()
+        grads = FA.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, window, q_pos0) if card else \
+            FA.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window,
+                                       q_pos0)
+        if card:
+            torch.cuda.synchronize(dev)
+        t_first = time.perf_counter() - t_first
+        o32, lse32, *g32 = fa_fp32_reference(q, k, v, do, causal, window,
+                                             q_pos0)
+        before = fa_before(q, k, v, causal, window, q_pos0)
+        # each check's least passing rms share (at its rtol) beside its
+        # limit
+        err, rel, ok32 = scaled_within(o, o32, *FA_TOL_F32[dt])
+        need = needed_share(o, o32, FA_TOL_F32[dt][1])
+        err_ref, rel_ref, ok_ref = scaled_within(o, before, *FA_TOL_REF[dt])
+        need_ref = needed_share(o, before, FA_TOL_REF[dt][1])
+        lse_err, ok_lse = within(lse, lse32, *FA_TOL_LSE)
+        g_plain = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                             window, q_pos0,
+                                             *FA_PLAIN_BLOCKS)
+        grad, grad_plain = {}, {}
+        for name, got, want, want_p in zip(("dq", "dk", "dv"), grads, g32,
+                                           g_plain):
+            _, _, g_ok = scaled_within(got, want, *FA_TOL_GRAD[dt])
+            _, _, p_ok = scaled_within(got, want_p, *FA_TOL_GRAD_PLAIN[dt])
+            grad[name] = needed_share(got, want, FA_TOL_GRAD[dt][1])
+            grad_plain[name] = needed_share(got, want_p,
+                                            FA_TOL_GRAD_PLAIN[dt][1])
+            if not (g_ok and p_ok):
+                failures.append(f"{label}: {name} needs an rms share of "
+                                f"{grad[name]:.3g} (fp32 autograd), "
+                                f"{grad_plain[name]:.3g} (plain backward)")
+        del g_plain
+        if not (ok32 and ok_ref and ok_lse):
+            failures.append(f"{label}: O needs an rms share of {need:.3g} "
+                            f"(fp32 plain), {need_ref:.3g} (plain, reference "
+                            f"dtypes); lse |err| {lse_err:.3g}")
+        faults = {}
+        if sq >= FA_FAULT_MIN_S:
+            planted = []
+            if causal:        # each row's last block of keys dropped
+                planted.append(("last keys dropped", q_pos0 - FA.BLOCK_K,
+                                window))
+            if window is not None:
+                planted.append(("window one block short", q_pos0,
+                                window - FA.BLOCK_K))
+            for name, qp, win in planted:
+                bad, _ = fwd(qp, win)
+                _, _, passes = scaled_within(bad, o32, *FA_TOL_F32[dt])
+                faults[name] = needed_share(bad, o32, FA_TOL_F32[dt][1])
+                if passes:
+                    failures.append(f"{label}: planted fault ({name}) "
+                                    f"passes, rms share {faults[name]:.3g}")
+                del bad
+        del o32, lse32, g32, before, grads
+        bounds = fa_bound(case)
+        row = {"case": label, "B": b, "Sq": sq, "Sk": sk, "KV": kvh, "G": g,
+               "D": d, "Dv": dv, "causal": causal, "window": window,
+               "q_pos0": q_pos0, "dtype": dt,
+               "pairs": b * kvh * g * fa_pairs(sq, sk, causal, window,
+                                               q_pos0),
+               "max_abs_err": err, "err_over_rms": rel,
+               "max_abs_err_ref": err_ref, "err_ref_over_rms": rel_ref,
+               "share_needed": need, "share_needed_ref": need_ref,
+               "lse_err": lse_err, "grad_share_needed": grad,
+               "grad_share_needed_plain": grad_plain,
+               "fault_share_needed": faults, "first_call_s": t_first,
+               "fwd_ms": dev_ms(fwd, dev), "ms": dev_ms(fwd_bwd, dev),
+               "fwd_bound_ms": bounds["fwd"][0],
+               "fwd_bound_by": bounds["fwd"][1],
+               "bound_ms": bounds["fwd_bwd"][0],
+               "bound_by": bounds["fwd_bwd"][1],
+               "flops": bounds["fwd_bwd"][2],
+               "plain_fwd_ms": once_ms(lambda: FA.flash_attention_fwd_ref(
+                   q, k, v, causal, window, q_pos0, *FA_PLAIN_BLOCKS), dev),
+               "plain_ms": once_ms(lambda: FA.flash_attention_bwd_ref(
+                   q, k, v, *FA.flash_attention_fwd_ref(
+                       q, k, v, causal, window, q_pos0, *FA_PLAIN_BLOCKS),
+                   do, causal, window, q_pos0, *FA_PLAIN_BLOCKS), dev),
+               "before_fwd_ms": once_ms(lambda: fa_before(
+                   q, k, v, causal, window, q_pos0), dev),
+               "library_fwd_ms": None, "library_ms": None}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        lib = (fa_sdpa(q, k, v, do, causal) if card and window is None
+               and q_pos0 == 0 and d == dv and dt == "bfloat16" else None)
+        if lib is not None:
+            _, l_rel, l_ok = scaled_within(lib[2], o, *FA_TOL_REF[dt])
+            if not l_ok:
+                failures.append(f"{label}: SDPA disagrees with the kernel, "
+                                f"{l_rel:.3g}")
+            row["library_fwd_ms"] = cuda_ms(lib[0], FA_REPS)
+            row["library_ms"] = cuda_ms(lib[1], FA_REPS)
+            del lib
+        row["wall_s"] = time.perf_counter() - t0
+        rows.append(row)
+        lib_s = ("none" if row["library_ms"] is None else
+                 f"{row['library_fwd_ms']:.3f} / {row['library_ms']:.3f}")
+        fault_s = "".join(f", planted fault ({k_}) {v_:.3g}"
+                          for k_, v_ in faults.items())
+        log(f"  flash attention {label} ({dt}): rms shares needed: O "
+            f"{need:.3g} (fp32 plain), {need_ref:.3g} (reference dtypes), "
+            f"dq {grad['dq']:.3g}, dk {grad['dk']:.3g}, dv {grad['dv']:.3g}"
+            f" (fp32 autograd), dq {grad_plain['dq']:.3g}, dk "
+            f"{grad_plain['dk']:.3g}, dv {grad_plain['dv']:.3g} (plain "
+            f"backward); lse |err| {lse_err:.2e}{fault_s}; max |err| / rms "
+            f"O {rel:.3g}"
+            f"; first call {t_first:.2f} s; "
+            f"kernel fwd {row['fwd_ms']:.3f} ms, fwd+bwd {row['ms']:.3f} ms "
+            f"(bound {row['fwd_bound_ms']:.3f} / {row['bound_ms']:.3f} ms, "
+            f"{row['bound_by']}; {100 * row['share_of_bound']:.1f}%); plain "
+            f"{row['plain_fwd_ms']:.1f} / {row['plain_ms']:.1f} ms, before "
+            f"{row['before_fwd_ms']:.1f} ms; SDPA {lib_s} ms; "
+            f"{row['wall_s']:.1f} s")
+        del q, k, v, do, o, lse
+        if card:
+            torch.cuda.empty_cache()
+    out = {"rows": rows}
+    if card:
+        main = next(c for c in cases if c[0] == FA_MAIN)
+        other = next(c for c in cases if c[0] != FA_MAIN
+                     and c[11] == main[11] and c[2] <= main[2])
+        out["graph"] = fa_graph_check(main, other, gen, dev, failures)
+    if failures:
+        raise AssertionError("flash attention: " + "; ".join(failures))
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4169,10 +4702,12 @@ def main() -> int:
     t0 = time.perf_counter()
     from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels import grouped_gemm as GG
-    with ThreadPoolExecutor(5) as pool:
+    from repro_torch.kernels import flash_attention as FA
+    with ThreadPoolExecutor(6) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
                  pool.submit(I8.build_library), pool.submit(GG.build_library),
-                 pool.submit(GG.build_sm90_library)]
+                 pool.submit(GG.build_sm90_library),
+                 pool.submit(FA.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -4466,6 +5001,14 @@ def main() -> int:
     log(f"grouped GEMM phase done in {report['grouped_gemm']['wall_s']:.1f} "
         f"s [{card}]")
 
+    # 14. the flash-attention kernel, before the phases that run it ---------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("phase 14: the flash-attention kernel against its plain versions")
+    report["flash"] = flash_phase(dev, args.seed)
+    log(f"flash-attention phase done in {report['flash']['wall_s']:.1f} s "
+        f"[{card}]")
+
     # 10. LM serving (python -m repro_torch.launch.serve) and its kernels -----
     t0 = time.perf_counter()
     log(f"phase 10a: the LM kernels against their plain versions (device "
@@ -4721,6 +5264,35 @@ def main() -> int:
         "decode_plain_ms": gg_dec["plain_ms"],
         "decode_library_ms": gg_dec["library_ms"],
     }]
+    fa = main_row(report["flash"]["rows"], case=FA_MAIN)
+    # 11c's, 13a's and 13c's calls: a forward one launch, a backward three
+    fa_calls = [r["flash_launches"] for r in train_full]
+    fa_calls += [r["flash_launches"] for r in pre]
+    fa_calls += [r["flash_launches"] for r in agree]
+    fa_pass = {k: sum(c[k] for c in fa_calls) for k in ("fwd", "bwd")}
+    kernels += [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/layers.py:130",
+        "launches": fa_pass["fwd"] + 3 * fa_pass["bwd"],
+        "calls_by_pass": fa_pass,
+        "max_abs_err": max(r["max_abs_err"] for r in report["flash"]["rows"]),
+        # forward + backward at phi4-mini's 11c shape (B 4 x S 2048, KV 8,
+        # G 3, D 128, causal); plain: flash_attention_fwd_ref + _bwd_ref at
+        # the reference's 512 x 1024 blocks
+        "ms": fa["ms"],
+        "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"],
+        "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "fwd_ms": fa["fwd_ms"],
+        "fwd_bound_ms": fa["fwd_bound_ms"],
+        "fwd_plain_ms": fa["plain_fwd_ms"],
+        "fwd_library_ms": fa["library_fwd_ms"],
+        # the card's path before the kernel (the naive fp32 scores)
+        "fwd_before_ms": fa["before_fwd_ms"],
+    }]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -4728,10 +5300,10 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention and "
-        "grouped_gemm (cuda, sm_90a; grouped_gemm_sm90.cu on every bf16 "
-        "launch, grouped_gemm.cu's tiles for fp32), ssd_decode_step, "
-        "cross_entropy and adamw_step (triton)")
+    log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention, "
+        "grouped_gemm and flash_attention (cuda, sm_90a; grouped_gemm_sm90.cu"
+        " on every bf16 launch, grouped_gemm.cu's tiles for fp32), "
+        "ssd_decode_step, cross_entropy and adamw_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

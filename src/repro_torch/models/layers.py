@@ -9,8 +9,13 @@ windows, optionally INT8), cross-attention, MLA (DeepSeek latent
 attention), and a blockwise *flash-style* path (online softmax over KV
 blocks) that keeps long-context prefill memory O(S·block).
 
-The decode attention's core (scores, ring mask, softmax, context) runs
-in :func:`repro_torch.kernels.decode_attention.gqa_decode_attention`:
+The full-sequence attention core (training, prefill, encoder, cross,
+MLA) runs in :func:`repro_torch.kernels.flash_attention.
+flash_attention_cuda` on CUDA tensors, at every key length; on the CPU
+and ``meta`` tensors it keeps the reference's switch between its two
+plain versions.  The decode attention's core (scores, ring mask,
+softmax, context) runs in
+:func:`repro_torch.kernels.decode_attention.gqa_decode_attention`:
 the CUDA kernel on CUDA, its plain version on the CPU.  The KV caches
 are updated in place (the reference's ``dynamic_update_slice`` on a
 donated state).  dtypes follow the reference at every step: norms in
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention import gqa_decode_attention
+from ..kernels.flash_attention import flash_attention_cuda
 from ..launch.mesh import axis_size
 from .analysis_flags import FLAGS as _AFLAGS
 
@@ -252,7 +258,11 @@ def _attention_local(cfg: ArchConfig, q2, k2, v2, causal: bool,
     (B, S, H·hd), ``k2``/``v2`` (B, Sk, KV·hd) -> context (B, S, H·hd).
     The head counts are read from the widths (a model rank's share under
     tensor parallelism); ``q_pos0`` is the absolute position of ``q2``'s
-    first row (a sequence-parallel rank's slice)."""
+    first row (a sequence-parallel rank's slice).  The core
+    (:func:`_attention_core_ctx`) is the flash-attention kernel on CUDA
+    tensors at every key length, and on the CPU and ``meta`` tensors the
+    reference's switch: naive scores up to ``FLASH_THRESHOLD`` keys, the
+    blockwise loop above."""
     b, s, _ = q2.shape
     sk = k2.shape[1]
     hd = cfg.hd
@@ -270,12 +280,24 @@ def _attention_local(cfg: ArchConfig, q2, k2, v2, causal: bool,
         q = apply_rope(q.reshape(b, s, kvh * g, hd), cos_q, sin_q) \
             .reshape(b, s, kvh, g, hd)
         k = apply_rope(k, cos_k, sin_k)
-    mfn = _mask_fn(cfg, causal)
-    if sk > FLASH_THRESHOLD and not _AFLAGS["naive_attention"]:
-        ctx = flash_attention(q, k, v, mfn, q_pos0)
-    else:
-        ctx = _gqa_scores_ctx(q, k, v, mfn, q_pos0)
+    ctx = _attention_core_ctx(cfg, q, k, v, causal, q_pos0)
     return ctx.reshape(b, s, h * hd)
+
+
+def _attention_core_ctx(cfg: ArchConfig, q, k, v, causal: bool,
+                        q_pos0: int = 0):
+    """The attention core: q (B, Sq, KV, G, D), k (B, Sk, KV, D), v
+    (B, Sk, KV, Dv) -> (B, Sq, KV, G, Dv) under ``cfg``'s mask.  CUDA
+    tensors (``naive_attention`` off): the kernel, which raises on what
+    it does not take.  Otherwise the reference's switch on ``Sk``."""
+    naive = _AFLAGS["naive_attention"]
+    if q.is_cuda and not naive:
+        return flash_attention_cuda(q, k, v, causal, cfg.sliding_window,
+                                    q_pos0)
+    mfn = _mask_fn(cfg, causal)
+    if k.shape[1] > FLASH_THRESHOLD and not naive:
+        return flash_attention(q, k, v, mfn, q_pos0)
+    return _gqa_scores_ctx(q, k, v, mfn, q_pos0)
 
 
 def _attention_core(cfg: ArchConfig, q2, k2, v2, wo, *, causal: bool,
@@ -512,6 +534,12 @@ def mla_apply(cfg: ArchConfig, p: Params, x, *,
 def _mla_apply_local(cfg: ArchConfig, p: Params, x, *,
                      positions: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
+    """Full-sequence MLA on plain tensors, its heads folded into the
+    GQA shapes (KV = H, G = 1; D = nope + rope, Dv = v_head_dim, v a
+    strided slice of ``wkv_b``'s output): the core
+    (:func:`_attention_core_ctx`) is the flash-attention kernel on CUDA
+    tensors at every length, and the reference's switch on the CPU and
+    ``meta`` tensors."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -522,11 +550,7 @@ def _mla_apply_local(cfg: ArchConfig, p: Params, x, *,
     # fold into the generic GQA shapes: kv-heads == n_heads here
     q = torch.cat([q_nope, q_rope], -1).reshape(b, s, h, 1, -1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, k_rope.shape[-1])], -1)
-    mfn = _mask_fn(cfg, True)
-    if s > FLASH_THRESHOLD and not _AFLAGS["naive_attention"]:
-        ctx = flash_attention(q, k, v, mfn)
-    else:
-        ctx = _gqa_scores_ctx(q, k, v, mfn, 0)
+    ctx = _attention_core_ctx(cfg, q, k, v, True)
     return ctx.reshape(b, s, h * m.v_head_dim) @ p["wo"]
 
 
