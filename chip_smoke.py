@@ -249,8 +249,9 @@ script exits non-zero):
    and ``--production-mesh`` refused with the 256-rank message.
 
 14. the flash-attention kernel (:func:`flash_phase`), run before phase 10:
-   its forward and backward (``kernels/flash_attention.py``,
-   ``csrc/flash_attention.cu``) at ``FA_CASES`` (phi4-mini at B 4 x S
+   its forward and backward (``kernels/flash_attention.py``; bf16 on the
+   ``sm90`` route, ``csrc/flash_attention_sm90.cu``, fp32 on the ``mma``
+   route, ``csrc/flash_attention.cu``) at ``FA_CASES`` (phi4-mini at B 4 x S
    2048 and B 1 x S 32768, h2o-danube's D 120 under its 4096 window at S
    8192, olmoe's G 1, whisper's encoder at S 1500 and its cross-attention
    at 448 x 1500, a deepseek-v3 MLA layer at H 128, D 192, Dv 128, S 4096
@@ -267,8 +268,11 @@ script exits non-zero):
    bytes / 3.35e12)`` over the valid pairs, the plain versions at the
    reference's 512 x 1024 blocks, the card's path before the kernel, and
    ``scaled_dot_product_attention``'s flash backend where it takes the
-   case.  11b, 11c, 13a and 13c count the kernel's launches on their
-   paths and assert them.
+   case, every bf16 case on the ``sm90`` and ``mma`` routes in turns
+   (``fa_redesign_checks`` logs the ``sm90`` route against SDPA and the
+   ``mma`` route at ``FA_REDESIGN``).  11b, 11c, 13a and 13c count the
+   kernel's launches on their paths and assert them, every one on the
+   route planned for their compute dtype (``fa_routes_check``).
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
@@ -651,6 +655,14 @@ FA_PLAIN_BLOCKS = (512, 1024)
 # this many fp32 scores
 FA_REF_SCORES = 5e8
 FA_REPS = 5
+# the sm90 route's checks (logged met / MISSED): at these cases its
+# forward faster than SDPA's, and its forward + backward at least
+# FA_REDESIGN_GAIN times faster than the mma route's in the same call
+FA_REDESIGN = ("phi4-mini B4 S2048", "phi4-mini B1 S32768")
+FA_REDESIGN_GAIN = 1.5
+# calls a CUDA graph holds in phase 14's timings (each route's runs in
+# turns; the graph is replayed 3 times)
+FA_GRAPH_REPS = 4
 
 
 def log(*a):
@@ -3077,6 +3089,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
             tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
         if label == "card":
             flash = dict(FA.launches_by_pass)
+            flash_routes = dict(FA.launches_by_route)
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -3099,6 +3112,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
            "loss_rel_gap": loss_gap, "norm_rel_gap": norm_gap,
            "update_gap_over_reach": worst, "far_share": far / total,
            "card_s": t_dev, "cpu_s": t_cpu, "flash_launches": flash,
+           "flash_routes": flash_routes,
            "wall_s": time.perf_counter() - t_start}
     # the flash-attention kernel: a forward an attention layer, again in
     # the block's recompute under remat, and a backward
@@ -3108,7 +3122,19 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
           and flash == {"fwd": 2 * n_attn, "bwd": n_attn})
     if not ok:
         raise AssertionError(f"{name} train step, card against CPU: {row}")
+    fa_routes_check(f"{name} train step", flash_routes, cfg.compute_dtype)
     return row
+
+
+def fa_routes_check(label: str, routes: dict, compute_dtype: str) -> None:
+    """Every flash-attention launch of a run took the route that
+    ``flash_attention.route`` plans for its compute dtype: ``sm90`` for
+    bf16, ``mma`` for fp32 (``launches_by_route``)."""
+    want = "sm90" if compute_dtype == "bfloat16" else "mma"
+    if any(n for r, n in routes.items() if r != want):
+        raise AssertionError(f"{label}: flash-attention launches by route "
+                             f"{routes}, all expected on {want} "
+                             f"({compute_dtype})")
 
 
 def train_loop(cfg, device, steps: int, batch: int, seq: int,
@@ -3168,6 +3194,8 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "moe_layers": moe_layers(cfg),
            "attention_layers": attention_layers(cfg),
            "flash_launches": dict(FA.launches_by_pass),
+           "flash_routes": dict(FA.launches_by_route),
+           "compute_dtype": cfg.compute_dtype,
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
            "grouped_gemm_launches": launches[3],
@@ -3213,6 +3241,7 @@ def check_training(label: str, row: dict) -> None:
         raise AssertionError(f"{label}: flash-attention calls "
                              f"{row['flash_launches']}, expected {2 * n} "
                              f"forwards and {n} backwards")
+    fa_routes_check(label, row["flash_routes"], row["compute_dtype"])
 
 
 def train_full_phase(device, seed: int = 0) -> list:
@@ -3267,6 +3296,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "moe_layers": moe_layers(cfg),
                    "attention_layers": attention_layers(cfg),
                    "flash_launches": dict(FA.launches_by_pass),
+                   "flash_routes": dict(FA.launches_by_route),
+                   "compute_dtype": cfg.compute_dtype,
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
                                 TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
@@ -3948,11 +3979,14 @@ def prefill_full_phase(device, seed: int = 0) -> list:
             logits, ms, peak = prefill_timed(fn, params, batch, reps, warm,
                                              dev)
             flash = dict(FA.launches_by_pass)
+            flash_routes = dict(FA.launches_by_route)
             want = (reps + int(warm)) * attention_layers(cfg)
             if flash != {"fwd": want, "bwd": 0}:
                 raise AssertionError(f"prefill B {b} S {s}: flash-attention "
                                      f"calls {flash}, expected {want} "
                                      f"forwards")
+            fa_routes_check(f"prefill B {b} S {s}", flash_routes,
+                            cfg.compute_dtype)
             if tuple(logits.shape) != (b, cfg.vocab) or \
                     logits.dtype != torch.float32 or \
                     not bool(torch.isfinite(logits).all()):
@@ -3975,7 +4009,7 @@ def prefill_full_phase(device, seed: int = 0) -> list:
                    "seq": s, "traced_layers": traced_layers or cfg.n_layers,
                    "calls_ms": ms, "median_ms": med,
                    "tok_s": b * s / (med / 1e3), "peak_gb": peak,
-                   "flash_launches": flash,
+                   "flash_launches": flash, "flash_routes": flash_routes,
                    "profiled_wall_ms": wall, "device_busy_ms": busy,
                    "top_device_events": top,
                    "wall_s": time.perf_counter() - t_start}
@@ -4091,10 +4125,12 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         with routing_recorded(r_card):
             card = fn_card(cast, {"tokens": tokens.to(dev)}).cpu()
         flash = dict(FA.launches_by_pass)
+        flash_routes = dict(FA.launches_by_route)
         want = attention_layers(cfg) if dev.type == "cuda" else 0
         if flash != {"fwd": want, "bwd": 0}:
             raise AssertionError(f"{name} prefill: flash-attention calls "
                                  f"{flash}, expected {want} forwards")
+        fa_routes_check(f"{name} prefill", flash_routes, cfg.compute_dtype)
         fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
         with routing_recorded(r_cpu):
             host = fn_cpu(cpu, {"tokens": tokens})
@@ -4123,7 +4159,8 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         return rows
 
     out = {"arch": name, "layers": layers, "batch": b, "seq": s,
-           "compute_dtype": cfg.compute_dtype, "flash_launches": flash}
+           "compute_dtype": cfg.compute_dtype, "flash_launches": flash,
+           "flash_routes": flash_routes}
     for label, other, routes, per_step in (("decode", stepped, r_dec, True),
                                            ("cpu", host, r_cpu, False)):
         keep = ~flipped(r_card, routes, per_step)
@@ -4491,6 +4528,35 @@ def fa_graph_check(case, other, gen, device, failures) -> dict:
     return {"case": case[0], "other": other[0], "replays_equal": same}
 
 
+def fa_ms(fn, device) -> float:
+    """Device ms of ``fn()`` on CUDA: ``FA_GRAPH_REPS`` calls in one CUDA
+    graph (:func:`graph_ms`); the host's mean on the CPU (a rehearsal)."""
+    if str(device).startswith("cuda"):
+        return graph_ms(fn, FA_GRAPH_REPS)
+    return dev_ms(fn, device)
+
+
+def fa_redesign_checks(rows) -> dict:
+    """The checks the sm90 route is held to at ``FA_REDESIGN`` (each
+    ``(value, met)``): its forward faster than SDPA's, its forward +
+    backward at least ``FA_REDESIGN_GAIN`` times faster than the mma
+    route's in the same call; logged, not raised."""
+    out = {}
+    for r in rows:
+        if r["case"] not in FA_REDESIGN or "mma_ms" not in r:
+            continue
+        if r["library_fwd_ms"] is not None:
+            out[f"{r['case']} fwd, SDPA over sm90"] = (
+                r["library_fwd_ms"] / r["fwd_ms"],
+                r["fwd_ms"] < r["library_fwd_ms"])
+        gain = r["mma_ms"] / r["ms"]
+        out[f"{r['case']} fwd + bwd, mma route over sm90"] = (
+            gain, gain >= FA_REDESIGN_GAIN)
+    for k, (v, met) in out.items():
+        log(f"  {k}: {v:.3f} ({'met' if met else 'MISSED'})")
+    return {k: {"value": v, "met": met} for k, (v, met) in out.items()}
+
+
 def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
     """Phase 14: the flash-attention kernel against its plain versions at
     ``cases``: O within ``FA_TOL_F32`` of the plain masked softmax on fp32
@@ -4498,8 +4564,9 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
     the reference's dtypes, lse within ``FA_TOL_LSE``, dq, dk and dv within
     ``FA_TOL_GRAD`` of autograd of the fp32 plain version; planted faults
     refused at ``FA_FAULT_MIN_S`` rows and up; a graph-replay check; each
-    case timed by CUDA-graph replay (forward, forward + backward) beside
-    its bound, the plain versions (:func:`flash_attention_fwd_ref` and
+    case timed by CUDA-graph replay (forward, forward + backward; a bf16
+    case on the ``sm90`` and ``mma`` routes in turns) beside its bound,
+    the plain versions (:func:`flash_attention_fwd_ref` and
     ``_bwd_ref`` at the reference's blocks; the path before the kernel)
     and SDPA's flash backend where it takes the case.  Launches made here
     compare; they are not counted.  On the CPU (a rehearsal) the plain
@@ -4516,15 +4583,20 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
         t0 = time.perf_counter()
         q, k, v, do = fa_inputs(case, gen, dev)
 
-        def fwd(qp=q_pos0, win=window):
+        # the planned route (sm90 for bf16, mma for fp32) unless `rt`
+        planned = FA.route(getattr(torch, dt), d, dv)
+
+        def fwd(qp=q_pos0, win=window, rt=None):
             if card:
-                return FA.flash_attention_fwd_cuda(q, k, v, causal, win, qp)
+                return FA.flash_attention_fwd_cuda(q, k, v, causal, win, qp,
+                                                   route=rt)
             return FA.flash_attention_fwd_ref(q, k, v, causal, win, qp)
 
-        def fwd_bwd():
+        def fwd_bwd(rt=None):
             if card:
-                return FA.flash_attention_bwd_cuda(q, k, v, *fwd(), do,
-                                                   causal, window, q_pos0)
+                return FA.flash_attention_bwd_cuda(
+                    q, k, v, *fwd(rt=rt), do, causal, window, q_pos0,
+                    route=rt)
             return FA.flash_attention_bwd_ref(q, k, v, *fwd(), do, causal,
                                               window, q_pos0)
 
@@ -4597,7 +4669,7 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
                "lse_err": lse_err, "grad_share_needed": grad,
                "grad_share_needed_plain": grad_plain,
                "fault_share_needed": faults, "first_call_s": t_first,
-               "fwd_ms": dev_ms(fwd, dev), "ms": dev_ms(fwd_bwd, dev),
+               "route": planned,
                "fwd_bound_ms": bounds["fwd"][0],
                "fwd_bound_by": bounds["fwd"][1],
                "bound_ms": bounds["fwd_bwd"][0],
@@ -4612,7 +4684,24 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
                "before_fwd_ms": once_ms(lambda: fa_before(
                    q, k, v, causal, window, q_pos0), dev),
                "library_fwd_ms": None, "library_ms": None}
+        # the planned route timed in turns with the mma route (bf16)
+        turns = ("mma", "sm90", "sm90", "mma") if planned == "sm90" \
+            else (planned,)
+        times = {rt: ([], []) for rt in turns}
+        for rt in turns:
+            times[rt][0].append(fa_ms(lambda: fwd(rt=rt), dev))
+            times[rt][1].append(fa_ms(lambda: fwd_bwd(rt), dev))
+        for rt, (tf, tb) in times.items():
+            pre = "" if rt == planned else f"{rt}_"
+            row[pre + "fwd_ms"] = sum(tf) / len(tf)
+            row[pre + "ms"] = sum(tb) / len(tb)
+            row[pre + "fwd_ms_runs"], row[pre + "ms_runs"] = tf, tb
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["fwd_share_of_bound"] = row["fwd_bound_ms"] / row["fwd_ms"]
+        if "mma_ms" in row:
+            row["mma_share_of_bound"] = row["bound_ms"] / row["mma_ms"]
+            row["mma_fwd_share_of_bound"] = (row["fwd_bound_ms"]
+                                             / row["mma_fwd_ms"])
         lib = (fa_sdpa(q, k, v, do, causal) if card and window is None
                and q_pos0 == 0 and d == dv and dt == "bfloat16" else None)
         if lib is not None:
@@ -4627,6 +4716,10 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
         rows.append(row)
         lib_s = ("none" if row["library_ms"] is None else
                  f"{row['library_fwd_ms']:.3f} / {row['library_ms']:.3f}")
+        mma_s = ("" if "mma_ms" not in row else
+                 f"; mma route {row['mma_fwd_ms']:.3f} / "
+                 f"{row['mma_ms']:.3f} ms "
+                 f"({100 * row['mma_share_of_bound']:.1f}%)")
         fault_s = "".join(f", planted fault ({k_}) {v_:.3g}"
                           for k_, v_ in faults.items())
         log(f"  flash attention {label} ({dt}): rms shares needed: O "
@@ -4637,9 +4730,10 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
             f"backward); lse |err| {lse_err:.2e}{fault_s}; max |err| / rms "
             f"O {rel:.3g}"
             f"; first call {t_first:.2f} s; "
-            f"kernel fwd {row['fwd_ms']:.3f} ms, fwd+bwd {row['ms']:.3f} ms "
-            f"(bound {row['fwd_bound_ms']:.3f} / {row['bound_ms']:.3f} ms, "
-            f"{row['bound_by']}; {100 * row['share_of_bound']:.1f}%); plain "
+            f"{planned} route fwd {row['fwd_ms']:.3f} ms, fwd+bwd "
+            f"{row['ms']:.3f} ms (bound {row['fwd_bound_ms']:.3f} / "
+            f"{row['bound_ms']:.3f} ms, {row['bound_by']}; "
+            f"{100 * row['share_of_bound']:.1f}%){mma_s}; plain "
             f"{row['plain_fwd_ms']:.1f} / {row['plain_ms']:.1f} ms, before "
             f"{row['before_fwd_ms']:.1f} ms; SDPA {lib_s} ms; "
             f"{row['wall_s']:.1f} s")
@@ -4652,6 +4746,7 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
         other = next(c for c in cases if c[0] != FA_MAIN
                      and c[11] == main[11] and c[2] <= main[2])
         out["graph"] = fa_graph_check(main, other, gen, dev, failures)
+        out["redesign"] = fa_redesign_checks(rows)
     if failures:
         raise AssertionError("flash attention: " + "; ".join(failures))
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4703,11 +4798,12 @@ def main() -> int:
     from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import flash_attention as FA
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
                  pool.submit(I8.build_library), pool.submit(GG.build_library),
                  pool.submit(GG.build_sm90_library),
-                 pool.submit(FA.build_library)]
+                 pool.submit(FA.build_library),
+                 pool.submit(FA.build_library, FA.SOURCE_SM90)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -5270,18 +5366,26 @@ def main() -> int:
     fa_calls += [r["flash_launches"] for r in pre]
     fa_calls += [r["flash_launches"] for r in agree]
     fa_pass = {k: sum(c[k] for c in fa_calls) for k in ("fwd", "bwd")}
+    fa_routes = {k: sum(r["flash_routes"][k] for r in train_full + pre + agree)
+                 for k in FA.ROUTES}
     kernels += [{
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # bf16 on the sm90 route (wgmma fed by TMA); fp32 (13c's olmoe) on
+        # flash_attention.cu's mma route
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/models/layers.py:130",
         "launches": fa_pass["fwd"] + 3 * fa_pass["bwd"],
         "calls_by_pass": fa_pass,
+        "launches_by_route": fa_routes,
         "max_abs_err": max(r["max_abs_err"] for r in report["flash"]["rows"]),
         # forward + backward at phi4-mini's 11c shape (B 4 x S 2048, KV 8,
-        # G 3, D 128, causal); plain: flash_attention_fwd_ref + _bwd_ref at
-        # the reference's 512 x 1024 blocks
+        # G 3, D 128, causal) on the sm90 route; plain:
+        # flash_attention_fwd_ref + _bwd_ref at the reference's 512 x 1024
+        # blocks; mma: flash_attention.cu on the same inputs, in turns
         "ms": fa["ms"],
+        "mma_ms": fa["mma_ms"],
+        "mma_fwd_ms": fa["mma_fwd_ms"],
         "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],
@@ -5302,7 +5406,8 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention, "
         "grouped_gemm and flash_attention (cuda, sm_90a; grouped_gemm_sm90.cu"
-        " on every bf16 launch, grouped_gemm.cu's tiles for fp32), "
+        " and flash_attention_sm90.cu on every bf16 launch, grouped_gemm.cu's"
+        " tiles and flash_attention.cu's mma route for fp32), "
         "ssd_decode_step, cross_entropy and adamw_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

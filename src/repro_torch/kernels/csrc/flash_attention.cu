@@ -17,8 +17,11 @@
 // score and probability in registers (nothing of size Sq x Sk reaches
 // memory) and runs both products of each step on the tensor cores.
 //
-// Design (FlashAttention-2's, on `mma.sync`; `wgmma`, TMA and warp
-// specialisation are later work):
+// This source is the `mma` route: fp32 inputs, and bf16 only when asked
+// for as the yardstick.  bf16 runs on flash_attention_sm90.cu (`wgmma` fed
+// by TMA, warp-specialised); the wrapper's planner (`route`) picks.
+//
+// Design (FlashAttention-2's, on `mma.sync`):
 // * Forward: a block takes the query rows of one (b, kv head, query head)
 //   in four warps: in bf16 up to D 128, 128 rows, 32 a warp, so that each
 //   K and V fragment a warp loads feeds two row tiles (FlashAttention-2's

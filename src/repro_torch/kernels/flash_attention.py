@@ -11,17 +11,22 @@ row i sits at absolute position ``q_pos0 + i`` and sees key j when
 ``j <= q_pos0 + i`` (``causal``) and ``j > q_pos0 + i - window``
 (``window``, under either).
 
-:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``
-(CUDA C++ for ``sm_90a``, built by ``nvcc`` at first use; a build or
-launch failure raises) through :class:`FlashAttention`: one forward
+:func:`flash_attention_cuda` launches the kernel that :func:`route`
+plans (CUDA C++ for ``sm_90a``, built by ``nvcc`` at first use; a build
+or launch failure raises) through :class:`FlashAttention`: one forward
 launch that also writes the fp32 log-sum-exp, and in the backward three
-launches (``delta``, then dK and dV, then dQ).  It takes CUDA tensors
-only: on the CPU and ``meta`` tensors :mod:`repro_torch.models.layers`
-keeps the reference's own switch between its two plain versions.
+launches (``delta``, then dK and dV, then dQ).  bf16 takes the ``sm90``
+route, ``csrc/flash_attention_sm90.cu`` (``wgmma`` fed by TMA, a producer
+warp and two consumer warpgroups, at :data:`SM90_BLOCKS`); fp32 the
+``mma`` route, ``csrc/flash_attention.cu`` (``mma.sync``, FMA for fp32,
+at :data:`BLOCK_Q` / :data:`BLOCK_K`).  It takes CUDA tensors only: on
+the CPU and ``meta`` tensors :mod:`repro_torch.models.layers` keeps the
+reference's own switch between its two plain versions.
 
-:func:`kv_block_range` and :func:`q_block_range` plan which 64-key blocks
-each query block visits (the kernel computes the same formulas: 64-row
-query blocks, 128 in the bf16 forward up to head dim 128);
+:func:`kv_block_range` and :func:`q_block_range` plan which key blocks
+each query block visits (both routes compute the same formulas at their
+own blocks: on the ``mma`` route 64-row query blocks, 128 in the bf16
+forward up to head dim 128, and 64-key blocks);
 :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref` are
 the kernel's algorithm as plain tensor code over those blocks (fp32
 scores and running statistics; the probabilities, and in the backward
@@ -44,8 +49,11 @@ __all__ = ["flash_attention_cuda", "flash_attention_fwd_cuda",
            "flash_attention_bwd_cuda", "flash_attention_fwd_ref",
            "flash_attention_bwd_ref", "FlashAttention", "kv_block_range",
            "q_block_range", "padded_dims", "build_library", "SOURCE",
-           "BLOCK_Q", "BLOCK_K", "launches_by_pass", "reset_launches"]
+           "BLOCK_Q", "BLOCK_K", "launches_by_pass", "reset_launches",
+           "route", "ROUTES", "SOURCE_SM90", "SM90_BLOCKS", "load_sm90",
+           "launches_by_route"]
 
+# the mma route's source
 SOURCE = nvcc.CSRC / "flash_attention.cu"
 # must match the .cu (kBQ, kBK): query rows and keys of a block (the bf16
 # forward up to head dim 128 takes two query blocks at once)
@@ -54,10 +62,37 @@ BLOCK_K = 64
 # the kernel's dtypes and their codes
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
+# the sm90 route's source and its blocks by padded head dim, (query rows,
+# keys): must match flash_attention_sm90.cu (kFwdBQ, kFwdBK; kBwdBQ, or
+# kBwdBQWide at 192, and kBwdBK; kDqBQ, kDqBK)
+SOURCE_SM90 = nvcc.CSRC / "flash_attention_sm90.cu"
+SM90_BLOCKS = {dp: {"fwd": (128, 128),
+                    "dkdv": (32 if dp == 192 else 64, 128),
+                    "dq": (128, 64)} for dp in (64, 128, 192)}
+ROUTES = ("sm90", "mma")
+
 _LIB: Optional[ctypes.CDLL] = None
+_SM90_LIB: Optional[ctypes.CDLL] = None
 # calls since the last reset (CPU calls excluded): "fwd" one launch each,
 # "bwd" three (delta, dK and dV, dQ)
 launches_by_pass: Dict[str, int] = {"fwd": 0, "bwd": 0}
+# kernel launches since the last reset by route (a forward one, a
+# backward three)
+launches_by_route: Dict[str, int] = {r: 0 for r in ROUTES}
+
+
+def route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The planned kernel: ``"sm90"`` (``wgmma`` fed by TMA) for bf16,
+    ``"mma"`` (``mma.sync``; FMA in fp32) for fp32.  Raises on a dtype or
+    head dims that neither takes."""
+    if padded_dims(d, dv) is None:
+        raise ValueError(f"no flash-attention kernel for head dims D {d}, "
+                         f"Dv {dv}")
+    if dtype == torch.bfloat16:
+        return "sm90"
+    if dtype == torch.float32:
+        return "mma"
+    raise TypeError(f"no flash-attention kernel for {dtype}")
 
 
 def padded_dims(d: int, dv: int) -> Optional[int]:
@@ -254,10 +289,10 @@ def _check(q, k, v, window: Optional[int] = None) -> None:
                              f"of 16 bytes, 16-byte aligned")
 
 
-def build_library():
-    """Compile ``csrc/flash_attention.cu`` (if not built yet); return the
-    shared library's path."""
-    return nvcc.build_library(SOURCE)
+def build_library(source=SOURCE):
+    """Compile ``source`` (the ``mma`` route's by default; if not built
+    yet); return the shared library's path."""
+    return nvcc.build_library(source)
 
 
 def _library() -> ctypes.CDLL:
@@ -278,6 +313,30 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
+def load_sm90(path) -> ctypes.CDLL:
+    """The ``sm90`` route's shared library at ``path`` (built from
+    ``SOURCE_SM90`` or a variant of it), its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_attention_sm90_fwd.argtypes = (
+        [c_ptr] * 5 + [strides] + [c_int] * 10 + [c_ptr])
+    lib.flash_attention_sm90_fwd.restype = c_int
+    lib.flash_attention_sm90_bwd.argtypes = (
+        [c_ptr] * 10 + [strides] + [c_int] * 10 + [c_ptr])
+    lib.flash_attention_sm90_bwd.restype = c_int
+    lib.flash_attention_sm90_error_string.argtypes = [c_int]
+    lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _sm90_library() -> ctypes.CDLL:
+    global _SM90_LIB
+    if _SM90_LIB is None:
+        _SM90_LIB = load_sm90(build_library(SOURCE_SM90))
+    return _SM90_LIB
+
+
 def _strides(*ts) -> ctypes.Array:
     """The strides the kernel reads, in elements, all but the last dim's
     of each tensor in turn (0 for a dim of size 1), as a C array of 14."""
@@ -287,15 +346,29 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * 14)(*vals)
 
 
-def _launch(fn, args, index: int, what: str) -> None:
+def _launch(lib, fn, args, index: int, what: str) -> None:
     if index == torch.cuda.current_device():
         err = fn(*args)
     else:
         with torch.cuda.device(index):
             err = fn(*args)
     if err:
-        raise RuntimeError(f"flash_attention_{what} failed: "
-                           f"{_LIB.flash_attention_error_string(err).decode()}")
+        msg = (lib.flash_attention_sm90_error_string if lib is _SM90_LIB
+               else lib.flash_attention_error_string)(err).decode()
+        raise RuntimeError(f"flash_attention_{what} failed: {msg}")
+
+
+def _route(q, d: int, dv: int, chosen: Optional[str]) -> str:
+    """The planned route, or ``chosen`` where it takes q's dtype (the
+    ``mma`` route takes both; ``sm90`` bf16 only)."""
+    planned = route(q.dtype, d, dv)
+    if chosen is None:
+        return planned
+    if chosen not in ROUTES:
+        raise ValueError(f"route {chosen!r} is not one of {ROUTES}")
+    if chosen == "sm90" and planned != "sm90":
+        raise ValueError(f"the sm90 route takes no {q.dtype} inputs")
+    return chosen
 
 
 def _on_card(*ts) -> int:
@@ -314,38 +387,49 @@ def _mask_args(causal: bool, window: Optional[int], q_pos0: int) -> tuple:
 
 def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
                              window: Optional[int] = None,
-                             q_pos0: int = 0):
+                             q_pos0: int = 0, route: Optional[str] = None):
     """One forward launch on CUDA tensors: ``(O, lse)``, O (B, Sq, KV, G,
-    Dv) contiguous in q's dtype, lse (B, KV, G, Sq) fp32."""
+    Dv) contiguous in q's dtype, lse (B, KV, G, Sq) fp32.  ``route``:
+    the planned one (:func:`route`) when ``None``; ``"mma"`` runs a bf16
+    call on the ``mma.sync`` kernel (a yardstick)."""
     _check(q, k, v, window)
     index = _on_card(q, k, v)
     mask = _mask_args(causal, window, q_pos0)
     b, sq, kvh, g, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
+    rt = _route(q, d, dv, route)
     out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, kvh, g, sq), dtype=torch.float32, device=q.device)
-    lib = _LIB or _library()
-    _launch(lib.flash_attention_fwd,
-            (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), _strides(q, k, v), b, sq, sk,
-             kvh, g, d, dv, *mask,
-             torch._C._cuda_getCurrentRawStream(index)), index, "fwd")
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _strides(q, k, v), b, sq, sk, kvh, g, d, dv,
+            *mask, stream)
+    if rt == "sm90":
+        lib = _SM90_LIB or _sm90_library()
+        _launch(lib, lib.flash_attention_sm90_fwd, ptrs, index, "fwd")
+    else:
+        lib = _LIB or _library()
+        _launch(lib, lib.flash_attention_fwd, (_DTYPES[q.dtype],) + ptrs,
+                index, "fwd")
     flash_attention_cuda.launches += 1
     launches_by_pass["fwd"] += 1
+    launches_by_route[rt] += 1
     return out, lse
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                              window: Optional[int] = None,
-                             q_pos0: int = 0):
+                             q_pos0: int = 0, route: Optional[str] = None):
     """The backward's three launches on CUDA tensors: ``(dq, dk, dv)``,
     contiguous in the inputs' dtype, from :func:`flash_attention_fwd_cuda`'s
-    ``o`` and ``lse`` and O's gradient ``do`` (strided like q)."""
+    ``o`` and ``lse`` and O's gradient ``do`` (strided like q), on
+    ``route`` (the planned one when ``None``)."""
     _check(q, k, v, window)
     index = _on_card(q, k, v, o, lse, do)
     mask = _mask_args(causal, window, q_pos0)
     b, sq, kvh, g, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
+    rt = _route(q, d, dv, route)
     if tuple(o.shape) != (b, sq, kvh, g, dv) or do.shape != o.shape \
             or o.dtype != q.dtype or do.dtype != q.dtype \
             or not o.is_contiguous() or not _layout_ok(do) \
@@ -360,15 +444,20 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     dvv = torch.empty((b, sk, kvh, dv), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, kvh, g, sq), dtype=torch.float32,
                         device=q.device)
-    lib = _LIB or _library()
-    _launch(lib.flash_attention_bwd,
-            (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-             _strides(q, k, v, do), b, sq, sk, kvh, g, d, dv, *mask,
-             torch._C._cuda_getCurrentRawStream(index)), index, "bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), _strides(q, k, v, do), b, sq, sk,
+            kvh, g, d, dv, *mask, torch._C._cuda_getCurrentRawStream(index))
+    if rt == "sm90":
+        lib = _SM90_LIB or _sm90_library()
+        _launch(lib, lib.flash_attention_sm90_bwd, ptrs, index, "bwd")
+    else:
+        lib = _LIB or _library()
+        _launch(lib, lib.flash_attention_bwd, (_DTYPES[q.dtype],) + ptrs,
+                index, "bwd")
     flash_attention_cuda.launches += 3
     launches_by_pass["bwd"] += 1
+    launches_by_route[rt] += 3
     return dq, dk, dvv
 
 
@@ -410,8 +499,10 @@ flash_attention_cuda.launches = 0
 
 
 def reset_launches() -> None:
-    """Set :attr:`flash_attention_cuda.launches` and each pass's count
-    to 0."""
+    """Set :attr:`flash_attention_cuda.launches`, each pass's count and
+    each route's to 0."""
     flash_attention_cuda.launches = 0
     for k in launches_by_pass:
         launches_by_pass[k] = 0
+    for k in launches_by_route:
+        launches_by_route[k] = 0

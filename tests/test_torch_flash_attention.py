@@ -1,10 +1,13 @@
-"""The flash-attention kernel's planner, plain versions and contract, on
-the CPU.
+"""The flash-attention kernel's planners, routes, plain versions and
+contract, on the CPU.
 
-``csrc/flash_attention.cu`` walks, for each query block (64 rows; 128
-in the bf16 forward up to head dim 128), the 64-key blocks that
-:func:`kv_block_range` plans (its backward's dK/dV walk
-:func:`q_block_range`'s query blocks); the planners must cover
+Both routes walk, for each query block, the key blocks that
+:func:`kv_block_range` plans (their backward's dK/dV walk
+:func:`q_block_range`'s query blocks), at their own blocks:
+``csrc/flash_attention.cu`` (the ``mma`` route, fp32) 64-row query
+blocks (128 in its bf16 forward up to head dim 128) and 64-key blocks,
+``csrc/flash_attention_sm90.cu`` (the ``sm90`` route, bf16)
+:data:`SM90_BLOCKS`; :func:`route` picks by dtype.  The planners must cover
 every (query, key) pair the mask lets through and visit no block that it
 masks whole.  :func:`flash_attention_fwd_ref` and
 :func:`flash_attention_bwd_ref` are the kernel's algorithm as plain
@@ -77,7 +80,59 @@ def test_block_constants_match_the_source():
         [64, 64, 128, 128, 128, 192, None, None]
 
 
-@pytest.mark.parametrize("bq,bk", [(4, 4), (4, 8), (8, 4), (3, 5)])
+def test_sm90_block_constants_match_the_source():
+    """``csrc/flash_attention_sm90.cu``'s blocks and padded head dims
+    against :data:`SM90_BLOCKS`."""
+    src = FA.SOURCE_SM90.read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    for dp, blocks in FA.SM90_BLOCKS.items():
+        bq = consts["kBwdBQWide"] if dp > 128 else consts["kBwdBQ"]
+        assert blocks == {"fwd": (consts["kFwdBQ"], consts["kFwdBK"]),
+                          "dkdv": (bq, consts["kBwdBK"]),
+                          "dq": (consts["kDqBQ"], consts["kDqBK"])}
+    assert re.findall(r"case (\d+):", src) == ["64", "128", "192"]
+    assert sorted(FA.SM90_BLOCKS) == [64, 128, 192]
+    # two consumer warpgroups of 64 rows (forward, dQ) or keys (dK, dV)
+    assert consts["kFwdBQ"] == consts["kDqBQ"] == consts["kBwdBK"] == 128
+    assert FA.SM90_BLOCKS[FA.padded_dims(120, 120)] == FA.SM90_BLOCKS[128]
+    assert FA.SM90_BLOCKS[FA.padded_dims(192, 128)]["dkdv"] == (32, 128)
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (120, 120), (128, 128),
+                                  (192, 128), (16, 16), (64, 128)])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "sm90"),
+                                        (torch.float32, "mma")])
+def test_route_planner(d, dv, dtype, want):
+    assert FA.route(dtype, d, dv) == want
+    assert want in FA.ROUTES
+
+
+@pytest.mark.parametrize("dtype,d,dv", [(torch.float16, 128, 128),
+                                        (torch.bfloat16, 256, 256),
+                                        (torch.float32, 192, 192)])
+def test_route_planner_refuses(dtype, d, dv):
+    with pytest.raises((TypeError, ValueError)):
+        FA.route(dtype, d, dv)
+
+
+def test_route_choice():
+    """``route=`` picks the planned route (``None``), the mma route for
+    either dtype, and never sm90 for fp32 or an unknown route."""
+    bf = _meta((1, 8, 1, 1, 64))
+    f32 = _meta((1, 8, 1, 1, 64), torch.float32)
+    assert FA._route(bf, 64, 64, None) == "sm90"
+    assert FA._route(bf, 64, 64, "mma") == "mma"
+    assert FA._route(f32, 64, 64, None) == "mma"
+    assert FA._route(f32, 64, 64, "mma") == "mma"
+    with pytest.raises(ValueError):
+        FA._route(f32, 64, 64, "sm90")
+    with pytest.raises(ValueError):
+        FA._route(bf, 64, 64, "wgmma")
+
+
+@pytest.mark.parametrize("bq,bk", [(4, 4), (4, 8), (8, 4), (3, 5), (2, 8),
+                                   (8, 8)])
 def test_planner_covers_every_valid_pair_and_no_masked_block(bq, bk):
     """Exhaustive over Sq, Sk up to 13, causal or not, windows and
     query offsets (a sequence-parallel slice; negative: rows that see no
@@ -122,6 +177,15 @@ CASES = [
     ("kernel blocks", (1, 150, 150, 2, 2, 16, 16, True, 70, 0, 64, 64)),
     ("bf16 forward blocks", (1, 300, 300, 2, 2, 16, 16, True, 100, 0, 128,
                              64)),
+    # the sm90 route's blocks: forward, dK/dV (D <= 128, and D 192), dQ
+    ("sm90 forward blocks", (1, 300, 300, 2, 2, 16, 16, True, 100, 0, 128,
+                             128)),
+    ("sm90 dkdv blocks", (1, 300, 300, 2, 2, 16, 16, True, 100, 0, 64,
+                          128)),
+    ("sm90 dkdv MLA blocks", (1, 200, 200, 2, 1, 24, 16, True, None, 0, 32,
+                              128)),
+    ("sm90 dq blocks", (2, 150, 280, 1, 2, 16, 16, True, None, 130, 128,
+                        64)),
 ]
 
 
@@ -315,4 +379,22 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         FA.flash_attention_fwd_cuda(q, k, k)
     assert FA.flash_attention_cuda.launches == 0
+    assert FA.launches_by_pass == {"fwd": 0, "bwd": 0}
+
+
+@pytest.mark.parametrize("rt", [None, "sm90", "mma"])
+def test_no_route_launch_counted_on_the_cpu(rt):
+    """The CUDA entry points refuse CPU tensors on every route and count
+    no launch on any."""
+    FA.reset_launches()
+    q = torch.zeros((1, 8, 1, 1, 16), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, 16), dtype=torch.bfloat16)
+    o = torch.zeros((1, 8, 1, 1, 16), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 1, 8))
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd_cuda(q, k, k, route=rt)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd_cuda(q, k, k, o, lse, o, route=rt)
+    assert FA.flash_attention_cuda.launches == 0
+    assert FA.launches_by_route == {"sm90": 0, "mma": 0}
     assert FA.launches_by_pass == {"fwd": 0, "bwd": 0}
