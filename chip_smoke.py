@@ -8,8 +8,9 @@ script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, six of them, the grouped GEMM's two and the flash attention
-   among them, each in its own thread, all started together) while
+   source, eight of them, the grouped GEMM's two, the flash attention's
+   two and the SSD chunk scan among them, each in its own thread, all
+   started together) while
    Triton
    compiles the SSD step's variants phase 10 launches
    (:func:`build_triton_kernels`) and the training kernels' first
@@ -179,7 +180,8 @@ script exits non-zero):
    with the plain versions on the CPU from the same parameters, loss and
    gradient norm within ``TRAIN_TOL``, every updated parameter within one
    AdamW step's reach and at most ``TRAIN_FLIP_MAX`` of them over half an
-   lr apart (olmoe-1b-7b too, under the local mesh); (c)
+   lr apart (olmoe-1b-7b too, under the local mesh), mamba2's SSD chunk
+   scan on its kernel (2 forward calls and a backward an SSM layer); (c)
    ``repro_torch.launch.train.main`` on mamba2-780m at full width and
    depth, and phi4-mini-3.8b and olmoe-1b-7b at full width cut to 8 and
    4 layers (``depth_variant``) through ``steps.make_train_step`` in the
@@ -187,6 +189,7 @@ script exits non-zero):
    loss finite at every step and lower at the last than at the first,
    the kernels' launches counted (2 cross-entropy launches, 1 norm launch
    and one update launch a leaf a step, 12 grouped-GEMM launches an MoE
+   layer a step, 2 SSD chunk-scan forward calls and a backward an SSM
    layer a step), median ms/step, tokens/s, peak device memory and the
    device-busy share of 8 more steps (one ``torch.profiler`` trace);
    (d) ``train.main --reduced`` (olmoe-1b-7b, through ``moe_ep`` and the
@@ -235,12 +238,18 @@ script exits non-zero):
    last-token head avoids), one traced call's device-busy ms; (b)
    olmoe-1b-7b at full
    depth, B 4 x S 2048, under the local mesh: 48 grouped-GEMM launches,
-   every one on the wgmma route; (c) phi4-mini and olmoe at 2 layers,
-   full width, B 4 x S 64: the prefill step's last-token logits on the
-   card against the prompt stepped through the decode step on the card
-   and against the prefill step on the CPU (``LOGIT_TOL``, MoE rows that
-   route differently left out, ``MOE_CHECKED_MIN`` held; the card's
-   prefill launches the flash-attention kernel once an attention layer);
+   every one on the wgmma route; (b') mamba2-780m at full depth, B 4 x
+   S 2048: the SSD chunk scan's forward on its kernel once an SSM layer a
+   call (counted), median ms a call, peak memory, one traced call's
+   device-busy ms; (c) phi4-mini, olmoe (fp32) and mamba2 (fp32) at 2
+   layers, full width, B 4 x S 64: the prefill step's last-token logits
+   on the card against the prompt stepped through the decode step on the
+   card and against the prefill step on the CPU (``LOGIT_TOL``, MoE rows
+   that route differently left out, ``MOE_CHECKED_MIN`` held; the card's
+   prefill launches the flash-attention kernel once an attention layer
+   and the SSD chunk scan once an SSM layer); mamba2 at bf16 against the
+   CPU's prefill alone, its gap to decode logged beside the CPU's own
+   (``PREFILL_AGREE_CPU_ONLY``);
    (d) each 13a call's device-busy time at least its cell's H100
    ``compute_s`` (where it is not: at least ``compute_s`` less the FLOPs
    of the masked attention blocks the dry run walks and the kernel
@@ -274,12 +283,32 @@ script exits non-zero):
    kernel's launches on their paths and assert them, every one on the
    route planned for their compute dtype (``fa_routes_check``).
 
+15. the SSD chunk-scan kernel (:func:`ssd_phase`), run before phase 10:
+   its forward and backward (``kernels/ssd_scan.py``,
+   ``csrc/ssd_chunk_scan.cu``) at ``SSD_SCAN_CASES`` (mamba2-780m at B 4 x
+   S 2048 and B 1 x S 32768, jamba-1.5's SSD geometry at B 1 x S 4096,
+   S 64 at Q 64, S = Q = 256, the reduced geometry in fp32; x, B and C
+   views of one conv row, as the layer splits them): y within
+   ``SSD_TOL_F32`` of ``ssd_chunk_scan_ref`` on fp32 upcasts and
+   ``SSD_TOL_REF`` of it in the reference's dtypes; dx, ddt, dA, dB and
+   dC within ``SSD_TOL_GRAD`` of autograd of the fp32 plain version and
+   ``SSD_TOL_GRAD_PLAIN`` of ``ssd_chunk_scan_bwd_ref``; two planted
+   faults (chunk 1's carried state dropped; the mask's diagonal dropped)
+   refused at every case of more than one chunk; forward and backward
+   captured in one CUDA graph, replays equal to eager calls bit for bit;
+   each case's forward and forward + backward timed by graph replay
+   beside its bound ``max(FLOPs / 989e12, bytes / 3.35e12)``
+   (:func:`ssd_bound`) and the plain version (the card's path before the
+   kernel); no PyTorch call computes the scan.  11b, 11c, 13b' and 13c
+   count the scan's calls on their paths and assert them.
+
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 10d's, the decode kernels' 10c's, the training kernels' 11c's, the
 grouped GEMM's 10c's, 11c's and 13b's, the flash attention's 11c's,
-13a's and 13c's (a forward one launch, a backward three).  Each record's
-times are device times
+13a's and 13c's (a forward one launch, a backward three), the SSD chunk
+scan's 11c's, 13b''s and 13c's (a forward three, a backward six).  Each
+record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
 cold from HBM, as a decode step reads it (``previous_ms``: the tile
@@ -293,7 +322,9 @@ layers with fp32 moments; the grouped GEMM's forward, dx and dw summed
 at olmoe's training buffer (up projection; ``previous_ms``: the same on
 the tile route, ``grouped_gemm.cu``; ``decode_*``: the forward at its
 decode buffer); the flash attention's forward and backward at phi4-mini's
-11c shape (``fwd_*``: the forward alone).  The
+11c shape (``fwd_*``: the forward alone); the SSD chunk scan's forward
+and backward at mamba2-780m's 11c shape (``fwd_*``: the forward alone).
+The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is present or when the
@@ -574,6 +605,10 @@ PREFILL_LOGITS_BYTES = 1 * 32768 * 200064 * 4
 # 13b: olmoe-1b-7b at full depth under the local mesh: 3 grouped-GEMM
 # launches an MoE layer, every one on the wgmma route
 PREFILL_MOE = ("olmoe-1b-7b", 4, 2048)
+# 13b': mamba2-780m at full depth (48 SSM layers) through make_prefill_step
+# at B 4 x S 2048: (arch, batch, seq, timed calls after a warm-up), the SSD
+# chunk scan's forward on the kernel once an SSM layer a call
+PREFILL_SSM = ("mamba2-780m", 4, 2048, 3)
 # 13c: 2 layers at full width, B 4 x S 64: the prefill step's last-token
 # logits on the card against the prompt stepped through the decode step
 # on the card and against the prefill step on the CPU, LOGIT_TOL of the
@@ -585,7 +620,15 @@ PREFILL_MOE = ("olmoe-1b-7b", 4, 2048)
 # of 64 router flipped in every row between the 256-token prefill and the
 # 4-token decode steps (4 of 4 rows on the H100): a row's last logits
 # depend on every earlier position's routing
-PREFILL_AGREE = (("phi4-mini-3.8b", 2, None), ("olmoe-1b-7b", 2, "float32"))
+PREFILL_AGREE = (("phi4-mini-3.8b", 2, None), ("olmoe-1b-7b", 2, "float32"),
+                 ("mamba2-780m", 2, "float32"))
+# ... and mamba2-780m at bf16, held against the CPU's prefill alone: at
+# bf16 the reference's own chunked prefill (bf16 scores, exp(cum) and
+# carried state) and its stepped decode (a bf16 state rounded every step)
+# differ by more than LOGIT_TOL at 2 layers, so that row logs its gap to
+# decode beside the CPU's own (cpu_own_decode_gap_over_range); the fp32
+# row above is held to decode
+PREFILL_AGREE_CPU_ONLY = (("mamba2-780m", 2, None),)
 PREFILL_AGREE_BATCH, PREFILL_AGREE_SEQ = 4, 64
 # 13d: the dry run's cells: cost_cell on the local (1, 1) mesh for 13a's
 # shapes (each call's device-busy time must be at least its H100
@@ -664,6 +707,43 @@ FA_REDESIGN_GAIN = 1.5
 # turns; the graph is replayed 3 times)
 FA_GRAPH_REPS = 4
 
+
+# phase 15: the SSD chunk-scan kernel (kernels/ssd_scan.py) against its
+# plain versions: (label, B, S, nh, hp, g, N, Q, dtype).  mamba2-780m (nh
+# 48, hp 64, N 128, g 1) at 11c's shape and at prefill_32k's sequence (128
+# chunks of 256), jamba-1.5's SSD geometry (nh 128, hp 128, N 128, g 8),
+# 11b's and 13c's sequence (S 64: Q = min(256, 64), one chunk), S = Q at
+# Q 256, and the reduced configs' geometry (Q = N = hp = 16, nh 8) in fp32
+SSD_SCAN_CASES = [
+    ("mamba2 B4 S2048", 4, 2048, 48, 64, 1, 128, 256, "bfloat16"),
+    ("mamba2 B1 S32768", 1, 32768, 48, 64, 1, 128, 256, "bfloat16"),
+    ("jamba B1 S4096", 1, 4096, 128, 128, 8, 128, 256, "bfloat16"),
+    ("mamba2 B4 S64", 4, 64, 48, 64, 1, 128, 64, "bfloat16"),
+    ("mamba2 B2 S=Q 256", 2, 256, 48, 64, 1, 128, 256, "bfloat16"),
+    ("reduced fp32 B2 S64", 2, 64, 8, 16, 1, 16, 16, "float32"),
+]
+# the kernels line's case: mamba2-780m at 11c's shape
+SSD_SCAN_MAIN = "mamba2 B4 S2048"
+# kernel vs plain, |err| <= tol[0] * rms(plain) + tol[1] * |plain|, by
+# dtype.  SSD_TOL_F32 holds y to ssd_chunk_scan_ref on fp32 upcasts of the
+# same inputs (bf16: the kernel rounds each product's operands to bf16, the
+# scores, the decay-weighted x or dy and the fp32 state among them, and
+# its output); SSD_TOL_REF holds y to ssd_chunk_scan_ref in the
+# reference's dtypes (the card's path before the kernel: the state carried
+# in bf16, W, decay * dt and exp(cum) rounded to bf16, far from the fp32
+# result); SSD_TOL_GRAD holds dx, ddt, dA, dB and dC to autograd of the
+# fp32 plain version, SSD_TOL_GRAD_PLAIN to ssd_chunk_scan_bwd_ref (the
+# kernel's algorithm in fp32 on the same inputs).  The shares are about 3x
+# the largest measured on an H100 (PERF.md section 6).  Two planted faults
+# (chunk 1's carried state dropped; the mask's diagonal dropped) must fail
+# SSD_TOL_F32 at every case of more than one chunk.
+SSD_TOL_F32 = {"bfloat16": (0.1, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+SSD_TOL_REF = {"bfloat16": (0.15, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+SSD_TOL_GRAD = {"bfloat16": (0.25, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+SSD_TOL_GRAD_PLAIN = {"bfloat16": (0.25, 2.0 ** -6),
+                      "float32": (1e-5, 1e-5)}
+# calls a CUDA graph holds in phase 15's timings
+SSD_GRAPH_REPS = 4
 
 def log(*a):
     print(*a, flush=True)
@@ -3062,6 +3142,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
     from repro_torch.data import make_batch
     from repro_torch.launch import meshctx, steps as lm_steps
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -3085,11 +3166,13 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
                                          total_steps=10)
         t0 = time.perf_counter()
         FA.reset_launches()
+        SS.reset_launches()
         with meshctx.use_mesh(mesh, data_axes=("data",)):
             tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
         if label == "card":
             flash = dict(FA.launches_by_pass)
             flash_routes = dict(FA.launches_by_route)
+            ssd = dict(SS.launches_by_pass)
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -3112,14 +3195,17 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
            "loss_rel_gap": loss_gap, "norm_rel_gap": norm_gap,
            "update_gap_over_reach": worst, "far_share": far / total,
            "card_s": t_dev, "cpu_s": t_cpu, "flash_launches": flash,
-           "flash_routes": flash_routes,
+           "flash_routes": flash_routes, "ssd_launches": ssd,
            "wall_s": time.perf_counter() - t_start}
-    # the flash-attention kernel: a forward an attention layer, again in
-    # the block's recompute under remat, and a backward
+    # the flash-attention kernel and the SSD chunk scan: a forward an
+    # attention (SSM) layer, again in the block's recompute under remat,
+    # and a backward
     n_attn = attention_layers(cfg) if dev.type == "cuda" else 0
+    n_ssm = ssm_layers(cfg) if dev.type == "cuda" else 0
     ok = (loss_gap <= TRAIN_TOL and norm_gap <= TRAIN_TOL and worst <= 1.0
           and far / total <= TRAIN_FLIP_MAX and mk["lr"] == mc["lr"]
-          and flash == {"fwd": 2 * n_attn, "bwd": n_attn})
+          and flash == {"fwd": 2 * n_attn, "bwd": n_attn}
+          and ssd == {"fwd": 2 * n_ssm, "bwd": n_ssm})
     if not ok:
         raise AssertionError(f"{name} train step, card against CPU: {row}")
     fa_routes_check(f"{name} train step", flash_routes, cfg.compute_dtype)
@@ -3152,6 +3238,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch import meshctx
     from repro_torch.launch import steps as lm_steps, train as lm_train
     from repro_torch.models import transformer as T
@@ -3181,6 +3268,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
     KA.adamw_step.launches = 0
     GG.reset_launches()
     FA.reset_launches()
+    SS.reset_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3195,6 +3283,8 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "attention_layers": attention_layers(cfg),
            "flash_launches": dict(FA.launches_by_pass),
            "flash_routes": dict(FA.launches_by_route),
+           "ssm_layers": ssm_layers(cfg),
+           "ssd_launches": dict(SS.launches_by_pass),
            "compute_dtype": cfg.compute_dtype,
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
@@ -3218,9 +3308,10 @@ def check_training(label: str, row: dict) -> None:
     configuration here has), 1 norm and one update launch a leaf a step,
     12 grouped-GEMM launches an MoE layer a step (3 forward, 3 in the
     block's recompute under remat, a dx and a dw for each of the 3 in the
-    backward), every one on ``grouped_gemm_sm90.cu`` (bf16), and 2
+    backward), every one on ``grouped_gemm_sm90.cu`` (bf16), 2
     flash-attention forwards (one in the recompute) and a backward an
-    attention layer a step."""
+    attention layer a step, and 2 SSD chunk-scan forwards and a backward
+    an SSM layer a step."""
     import math
     losses, steps = row["losses"], row["steps"]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
@@ -3242,6 +3333,11 @@ def check_training(label: str, row: dict) -> None:
                              f"{row['flash_launches']}, expected {2 * n} "
                              f"forwards and {n} backwards")
     fa_routes_check(label, row["flash_routes"], row["compute_dtype"])
+    n = steps * row["ssm_layers"]
+    if row["ssd_launches"] != {"fwd": 2 * n, "bwd": n}:
+        raise AssertionError(f"{label}: SSD chunk-scan calls "
+                             f"{row['ssd_launches']}, expected {2 * n} "
+                             f"forwards and {n} backwards")
 
 
 def train_full_phase(device, seed: int = 0) -> list:
@@ -3258,6 +3354,7 @@ def train_full_phase(device, seed: int = 0) -> list:
     from repro_torch.kernels import adamw as KA, cross_entropy as KX
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch import train as lm_train
 
     dev = torch.device(device)
@@ -3275,6 +3372,7 @@ def train_full_phase(device, seed: int = 0) -> list:
             KA.adamw_step.launches = 0
             GG.reset_launches()
             FA.reset_launches()
+            SS.reset_launches()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lm_train.main(argv)
@@ -3297,6 +3395,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "attention_layers": attention_layers(cfg),
                    "flash_launches": dict(FA.launches_by_pass),
                    "flash_routes": dict(FA.launches_by_route),
+                   "ssm_layers": ssm_layers(cfg),
+                   "ssd_launches": dict(SS.launches_by_pass),
                    "compute_dtype": cfg.compute_dtype,
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
@@ -3325,7 +3425,8 @@ def train_full_phase(device, seed: int = 0) -> list:
             f"{row['update_launches']} ({row['leaves']} leaves), grouped "
             f"GEMM {row['grouped_gemm_launches']} (by route "
             f"{row['grouped_gemm_routes']}), flash attention "
-            f"{row['flash_launches']}; "
+            f"{row['flash_launches']}, SSD chunk scan "
+            f"{row['ssd_launches']}; "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
@@ -4083,20 +4184,76 @@ def prefill_moe_phase(device, seed: int = 0) -> dict:
             "grouped_gemm_launches": launched, "grouped_gemm_routes": routes}
 
 
+def prefill_ssm_phase(device, seed: int = 0) -> dict:
+    """Phase 13b': mamba2-780m at full depth (48 SSM layers) through
+    ``make_prefill_step`` at B 4 x S 2048 under the local mesh: a warm-up
+    call and ``PREFILL_SSM[3]`` timed calls, the SSD chunk scan's launches
+    counted from 0 just before them and read just after (one forward an
+    SSM layer a call, no backward), finite last-token logits, the median
+    host ms of the timed calls, prefill tokens/s, the peak device memory
+    and one ``torch.profiler`` trace of a call (its device-busy ms)."""
+    import statistics
+    import torch
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch import meshctx, steps as lm_steps
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import transformer as T
+
+    name, b, s, reps = PREFILL_SSM
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    cfg = ARCHS[name]
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    fn, _ = lm_steps.make_prefill_step(
+        cfg, dev, ShapeConfig("prefill", s, b, "prefill"))
+    batch = {"tokens": torch.from_numpy(make_batch(
+        cfg, b, s, seed=seed, step=0)["tokens"]).to(dev)}
+    with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
+        SS.reset_launches()
+        logits, ms, peak = prefill_timed(fn, params, batch, reps, True, dev)
+        ssd = dict(SS.launches_by_pass)
+        wall, busy, top = device_profile(lambda: fn(params, batch),
+                                         cpu=False)
+    want = (reps + 1) * ssm_layers(cfg)
+    if ssd != {"fwd": want, "bwd": 0}:
+        raise AssertionError(f"{name} prefill: SSD chunk-scan calls {ssd}, "
+                             f"expected {want} forwards")
+    if tuple(logits.shape) != (b, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} prefill: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    med = statistics.median(ms)
+    row = {"arch": name, "layers": cfg.n_layers, "batch": b, "seq": s,
+           "calls_ms": ms, "median_ms": med, "tok_s": b * s / (med / 1e3),
+           "peak_gb": peak, "ssd_launches": ssd, "profiled_wall_ms": wall,
+           "device_busy_ms": busy, "top_device_events": top,
+           "wall_s": time.perf_counter() - t_start}
+    del params, logits, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
-                        compute_dtype=None) -> dict:
+                        compute_dtype=None, hold_decode: bool = True) -> dict:
     """Phase 13c: ``name`` at full width cut to ``layers`` layers, B 4 x
     S 64, under the local mesh: the prefill step's last-token logits on
     the card against the same prompt stepped through ``make_decode_step``
     on the card, and against the prefill step on the CPU with the same
     bf16 parameters; within ``LOGIT_TOL`` of the range on the rows held
     (an MoE row whose tokens route differently between the two runs of
-    a pair is left out; ``MOE_CHECKED_MIN`` of the rows must be held)."""
+    a pair is left out; ``MOE_CHECKED_MIN`` of the rows must be held).
+    Without ``hold_decode`` the gap to decode is logged, not held, beside
+    the CPU's own prefill against the prompt stepped through the decode
+    step on the CPU."""
     import dataclasses
     import torch
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.data import make_batch
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch import meshctx, steps as lm_steps
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
@@ -4122,14 +4279,20 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
         fn_card, _ = lm_steps.make_prefill_step(cfg, dev, shape)
         FA.reset_launches()
+        SS.reset_launches()
         with routing_recorded(r_card):
             card = fn_card(cast, {"tokens": tokens.to(dev)}).cpu()
         flash = dict(FA.launches_by_pass)
         flash_routes = dict(FA.launches_by_route)
+        ssd = dict(SS.launches_by_pass)
         want = attention_layers(cfg) if dev.type == "cuda" else 0
         if flash != {"fwd": want, "bwd": 0}:
             raise AssertionError(f"{name} prefill: flash-attention calls "
                                  f"{flash}, expected {want} forwards")
+        want = ssm_layers(cfg) if dev.type == "cuda" else 0
+        if ssd != {"fwd": want, "bwd": 0}:
+            raise AssertionError(f"{name} prefill: SSD chunk-scan calls "
+                                 f"{ssd}, expected {want} forwards")
         fa_routes_check(f"{name} prefill", flash_routes, cfg.compute_dtype)
         fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
         with routing_recorded(r_cpu):
@@ -4141,6 +4304,13 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
             for t in range(s):
                 stepped, state = dec(cast, state, tokens[:, t:t + 1].to(dev))
         stepped = stepped.cpu()
+        if not hold_decode:
+            dec_cpu, _ = lm_steps.make_decode_step(
+                cfg, "cpu", ShapeConfig("agree", s, b, "decode"))
+            state_cpu = T.init_decode_state(cfg, cpu, b, s)
+            for t in range(s):
+                own, state_cpu = dec_cpu(cpu, state_cpu, tokens[:, t:t + 1])
+            del state_cpu
 
     def flipped(a_routes, b_routes, per_step: bool):
         """Rows whose tokens route differently in any MoE layer."""
@@ -4160,7 +4330,11 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
 
     out = {"arch": name, "layers": layers, "batch": b, "seq": s,
            "compute_dtype": cfg.compute_dtype, "flash_launches": flash,
-           "flash_routes": flash_routes}
+           "flash_routes": flash_routes, "ssd_launches": ssd,
+           "decode_held": hold_decode}
+    if not hold_decode:
+        out["cpu_own_decode_gap_over_range"] = float(
+            (host - own).abs().max()) / float(own.abs().max())
     for label, other, routes, per_step in (("decode", stepped, r_dec, True),
                                            ("cpu", host, r_cpu, False)):
         keep = ~flipped(r_card, routes, per_step)
@@ -4171,7 +4345,8 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         scale = float(other.abs().max())
         gap = float((card[keep] - other[keep]).abs().max()) if held else 0.0
         if not (bool(torch.isfinite(card).all())
-                and gap <= LOGIT_TOL * scale):
+                and (gap <= LOGIT_TOL * scale
+                     or (label == "decode" and not hold_decode))):
             raise AssertionError(f"{name} prefill (card) vs {label}: max "
                                  f"|gap| {gap} over max |logit| {scale}")
         out[f"{label}_gap_over_range"] = gap / scale
@@ -4483,22 +4658,14 @@ def fa_inputs(case, gen, device) -> tuple:
     return q, k, v, draw(b, sq, kvh, g, dv)
 
 
-def fa_graph_check(case, other, gen, device, failures) -> dict:
-    """The forward and backward of ``case`` captured in one CUDA graph and
-    replayed 3 times: each replay equal, bit for bit, to eager calls (the
-    kernels are deterministic: no floating atomics); before the last
-    replay an eager forward and backward of ``other``'s shape."""
+def graph_replay_check(label: str, other_label: str, step, other_step,
+                       failures) -> dict:
+    """``step()`` (a forward and backward, returning its outputs) captured
+    in one CUDA graph and replayed 3 times: each replay equal, bit for
+    bit, to an eager call (the kernels are deterministic: no floating
+    atomics); before the last replay ``other_step()``, an eager call of
+    another shape."""
     import torch
-    from repro_torch.kernels import flash_attention as FA
-    causal, window, q_pos0 = case[8:11]
-    q, k, v, do = fa_inputs(case, gen, device)
-
-    def step():
-        o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal, window,
-                                             q_pos0)
-        return (o, lse) + FA.flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal, window, q_pos0)
-
     eager = step()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -4511,21 +4678,37 @@ def fa_graph_check(case, other, gen, device, failures) -> dict:
     same = []
     for r in range(3):
         if r == 2:
-            oq, ok_, ov, odo = fa_inputs(other, gen, device)
-            oc, ow, op = other[8:11]
-            oo, ol = FA.flash_attention_fwd_cuda(oq, ok_, ov, oc, ow, op)
-            FA.flash_attention_bwd_cuda(oq, ok_, ov, oo, ol, odo, oc, ow, op)
-            del oq, ok_, ov, odo, oo, ol
+            other_step()
         graph.replay()
         torch.cuda.synchronize()
         same.append(all(torch.equal(a, e) for a, e in zip(outs, eager)))
     del graph
     if not all(same):
         failures.append(f"graph check: replays equal to eager {same}")
-    log(f"  {case[0]}: forward + backward captured in one CUDA graph: 3 "
-        f"replays equal to eager calls, the last after a {other[0]} call: "
-        f"{same}")
-    return {"case": case[0], "other": other[0], "replays_equal": same}
+    log(f"  {label}: forward + backward captured in one CUDA graph: 3 "
+        f"replays equal to eager calls, the last after a {other_label} "
+        f"call: {same}")
+    return {"case": label, "other": other_label, "replays_equal": same}
+
+
+def fa_graph_check(case, other, gen, device, failures) -> dict:
+    """:func:`graph_replay_check` of ``case``'s flash-attention forward
+    and backward, ``other``'s shape called before the last replay."""
+    from repro_torch.kernels import flash_attention as FA
+
+    def fwd_bwd(c):
+        q, k, v, do = fa_inputs(c, gen, device)
+        causal, window, q_pos0 = c[8:11]
+
+        def step():
+            o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal, window,
+                                                 q_pos0)
+            return (o, lse) + FA.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal, window, q_pos0)
+        return step
+
+    return graph_replay_check(case[0], other[0], fwd_bwd(case),
+                              lambda: fwd_bwd(other)(), failures)
 
 
 def fa_ms(fn, device) -> float:
@@ -4753,6 +4936,254 @@ def flash_phase(device, seed: int = 0, cases=FA_CASES) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SSD chunk-scan kernel
+# ---------------------------------------------------------------------------
+
+
+def ssm_layers(cfg) -> int:
+    """Mamba-2 sublayers of ``cfg``'s decoder blocks (each runs the SSD
+    chunk scan once a forward)."""
+    return cfg.n_blocks * cfg.block_pattern.count("M")
+
+
+def ssd_bound(case) -> dict:
+    """``{"fwd" | "fwd_bwd": (bound ms, "operations" | "bytes", FLOPs)}``
+    of a phase 15 case, with T = Q (Q + 1) / 2 the causal pairs of a
+    chunk: FLOPs 2·B·nc·(g·N·T + nh·hp·T + 2·nh·Q·N·hp) forward (C B^T,
+    W x, the chunk states, y_off) and 2·B·nc·(g·N·T + 2·nh·hp·T +
+    2·nh·N·T + 4·nh·Q·N·hp) more backward (C B^T, dy x^T, W^T dy, the two
+    dS products, and G, B D, x D^T, dy H^T), against the bf16 tensor-core
+    peak (fp32 inputs: the fp32 peak); bytes x, B, C, dt read and y
+    written forward, and dy read, dx, dB, dC, ddt written in the
+    backward, at the HBM rate (x, B and C are read where they lie: no
+    copy)."""
+    _, b, S, nh, hp, g, n, Q, dt = case
+    nc, T = S // Q, Q * (Q + 1) / 2
+    elem = 2 if dt == "bfloat16" else 4
+    peak = PEAK_BF16_OPS if dt == "bfloat16" else PEAK_F32_OPS
+    f_fwd = 2.0 * b * nc * (g * n * T + nh * hp * T + 2 * nh * Q * n * hp)
+    f_bwd = 2.0 * b * nc * (g * n * T + 2 * nh * hp * T + 2 * nh * n * T
+                            + 4 * nh * Q * n * hp)
+    io = elem * (2 * b * S * nh * hp + 2 * b * S * g * n) + 4 * b * S * nh
+    out = {}
+    for name, f, n_bytes in (("fwd", f_fwd, io),
+                             ("fwd_bwd", f_fwd + f_bwd, 2 * io)):
+        t_o, t_b = f / peak, n_bytes / PEAK_BYTES
+        out[name] = (1e3 * max(t_o, t_b),
+                     "operations" if t_o >= t_b else "bytes", f)
+    return out
+
+
+def ssd_inputs(case, gen, device) -> tuple:
+    """x, dt, A, B, C and y's gradient of a phase 15 case: x, B and C
+    views of one conv row (as the layer splits them), normal draws; dt a
+    softplus of normal draws less 2; A = -linspace(1, 16, nh), the layer's
+    initial A_log range."""
+    import torch
+    _, b, S, nh, hp, g, n, _, dt_name = case
+    dtype = getattr(torch, dt_name)
+    xbc = torch.randn((b, S, nh * hp + 2 * g * n), generator=gen,
+                      device=device).to(dtype)
+    x = xbc[..., :nh * hp].reshape(b, S, nh, hp)
+    B = xbc[..., nh * hp:nh * hp + g * n].reshape(b, S, g, n)
+    C = xbc[..., nh * hp + g * n:].reshape(b, S, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, S, nh), generator=gen, device=device) - 2.0)
+    A = -torch.linspace(1.0, 16.0, nh, device=device)
+    dy = torch.randn((b, S, nh, hp), generator=gen, device=device).to(dtype)
+    return x, dt, A, B, C, dy
+
+
+def ssd_calls(card: bool):
+    """``(fwd, bwd)``: the kernel's entry points on the card; on the CPU
+    (a rehearsal) the plain versions in their place."""
+    from repro_torch.kernels import ssd_scan as K
+    if card:
+        return K.ssd_chunk_scan_fwd_cuda, K.ssd_chunk_scan_bwd_cuda
+
+    def fwd(x, dt, A, B, C, chunk, plant=0):
+        return (K.ssd_chunk_scan_ref(x, dt, A, B, C, chunk),
+                *K.ssd_chunk_states_ref(x, dt, A, B, C, chunk))
+
+    def bwd(dy, x, dt, A, B, C, cum, state, chunk):
+        return K.ssd_chunk_scan_bwd_ref(dy, x, dt, A, B, C, chunk)
+
+    return fwd, bwd
+
+
+def ssd_plain(x, dt, A, B, C, chunk, dy=None, upcast=False):
+    """The plain forward (``ssd_chunk_scan_ref``; on fp32 upcasts when
+    ``upcast``), and with ``dy`` its gradients by autograd: ``(y, [dx,
+    ddt, dA, dB, dC])``."""
+    import torch
+    from repro_torch.kernels import ssd_scan as K
+    ins = [t.detach().float() if upcast else t.detach()
+           for t in (x, dt, A, B, C)]
+    if dy is None:
+        with torch.no_grad():
+            return K.ssd_chunk_scan_ref(*ins, chunk), None
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y = K.ssd_chunk_scan_ref(*leaves, chunk)
+    y.backward(dy.float() if upcast else dy)
+    return y.detach(), [t.grad for t in leaves]
+
+
+def ssd_graph_check(case, other, gen, device, failures) -> dict:
+    """:func:`graph_replay_check` of ``case``'s SSD chunk-scan forward and
+    backward, ``other``'s shape called before the last replay."""
+    from repro_torch.kernels import ssd_scan as K
+
+    def fwd_bwd(c):
+        x, dt, A, B, C, dy = ssd_inputs(c, gen, device)
+
+        def step():
+            y, cum, st = K.ssd_chunk_scan_fwd_cuda(x, dt, A, B, C, c[7])
+            return (y,) + K.ssd_chunk_scan_bwd_cuda(dy, x, dt, A, B, C, cum,
+                                                    st, c[7])
+        return step
+
+    return graph_replay_check(case[0], other[0], fwd_bwd(case),
+                              lambda: fwd_bwd(other)(), failures)
+
+
+def ssd_phase(device, seed: int = 0, cases=SSD_SCAN_CASES) -> dict:
+    """Phase 15: the SSD chunk-scan kernel against its plain versions at
+    ``cases``: y within ``SSD_TOL_F32`` of ``ssd_chunk_scan_ref`` on fp32
+    upcasts and ``SSD_TOL_REF`` of it in the reference's dtypes; dx, ddt,
+    dA, dB and dC within ``SSD_TOL_GRAD`` of autograd of the fp32 plain
+    version and ``SSD_TOL_GRAD_PLAIN`` of ``ssd_chunk_scan_bwd_ref``;
+    planted faults refused at every case of more than one chunk; a
+    graph-replay check; each case's forward and forward + backward timed
+    by CUDA-graph replay beside its bound and the plain version (the
+    card's path before the kernel: ``ssd_chunk_scan_ref`` in the
+    reference's dtypes under autograd; no PyTorch call computes the scan).
+    Launches made here compare; they are not counted.  On the CPU (a
+    rehearsal) the plain versions stand in for the kernel."""
+    import torch
+    from repro_torch.kernels import ssd_scan as K
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    fwd_call, bwd_call = ssd_calls(card)
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows, failures = [], []
+    t_phase = time.perf_counter()
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for case in cases:
+        label, b, S, nh, hp, g, n, Q, dt_name = case
+        t0 = time.perf_counter()
+        x, dt, A, B, C, dy = ssd_inputs(case, gen, dev)
+
+        def fwd(plant=0):
+            return fwd_call(x, dt, A, B, C, Q, plant=plant)
+
+        def fwd_bwd():
+            y_, cum_, st_ = fwd()
+            return bwd_call(dy, x, dt, A, B, C, cum_, st_, Q)
+
+        t_first = time.perf_counter()
+        y, cum, st = fwd()
+        grads = bwd_call(dy, x, dt, A, B, C, cum, st, Q)
+        if card:
+            torch.cuda.synchronize(dev)
+        t_first = time.perf_counter() - t_first
+        y32, g32 = ssd_plain(x, dt, A, B, C, Q, dy, upcast=True)
+        before, _ = ssd_plain(x, dt, A, B, C, Q)
+        err, rel, ok32 = scaled_within(y, y32, *SSD_TOL_F32[dt_name])
+        need = needed_share(y, y32, SSD_TOL_F32[dt_name][1])
+        _, rel_ref, ok_ref = scaled_within(y, before, *SSD_TOL_REF[dt_name])
+        need_ref = needed_share(y, before, SSD_TOL_REF[dt_name][1])
+        if not (ok32 and ok_ref):
+            failures.append(f"{label}: y needs an rms share of {need:.3g} "
+                            f"(fp32 plain), {need_ref:.3g} (plain, reference"
+                            f" dtypes)")
+        g_plain = K.ssd_chunk_scan_bwd_ref(dy, x, dt, A, B, C, Q)
+        grad, grad_plain = {}, {}
+        for name, got, want, want_p in zip(names, grads, g32, g_plain):
+            _, _, g_ok = scaled_within(got, want, *SSD_TOL_GRAD[dt_name])
+            _, _, p_ok = scaled_within(got, want_p,
+                                       *SSD_TOL_GRAD_PLAIN[dt_name])
+            grad[name] = needed_share(got, want, SSD_TOL_GRAD[dt_name][1])
+            grad_plain[name] = needed_share(got, want_p,
+                                            SSD_TOL_GRAD_PLAIN[dt_name][1])
+            if not (g_ok and p_ok):
+                failures.append(f"{label}: {name} needs an rms share of "
+                                f"{grad[name]:.3g} (fp32 autograd), "
+                                f"{grad_plain[name]:.3g} (plain backward)")
+        del g_plain, g32, before
+        faults = {}
+        if card and S > Q:
+            for fname, bit in (("state dropped", K.PLANT_STATE),
+                               ("diagonal dropped", K.PLANT_DIAG)):
+                bad, _, _ = fwd(bit)
+                _, _, passes = scaled_within(bad, y32,
+                                             *SSD_TOL_F32[dt_name])
+                faults[fname] = needed_share(bad, y32,
+                                             SSD_TOL_F32[dt_name][1])
+                if passes:
+                    failures.append(f"{label}: planted fault ({fname}) "
+                                    f"passes, rms share {faults[fname]:.3g}")
+                del bad
+        del y32, grads
+        bounds = ssd_bound(case)
+
+        def plain_fwd_bwd():
+            ssd_plain(x, dt, A, B, C, Q, dy)
+
+        row = {"case": label, "B": b, "S": S, "nh": nh, "hp": hp, "g": g,
+               "N": n, "Q": Q, "dtype": dt_name, "chunks": S // Q,
+               "max_abs_err": err, "err_over_rms": rel,
+               "err_ref_over_rms": rel_ref, "share_needed": need,
+               "share_needed_ref": need_ref, "grad_share_needed": grad,
+               "grad_share_needed_plain": grad_plain,
+               "fault_share_needed": faults, "first_call_s": t_first,
+               "fwd_bound_ms": bounds["fwd"][0],
+               "fwd_bound_by": bounds["fwd"][1],
+               "bound_ms": bounds["fwd_bwd"][0],
+               "bound_by": bounds["fwd_bwd"][1],
+               "flops": bounds["fwd_bwd"][2],
+               "plain_fwd_ms": once_ms(lambda: ssd_plain(x, dt, A, B, C, Q),
+                                       dev),
+               "plain_ms": once_ms(plain_fwd_bwd, dev),
+               "fwd_ms": (graph_ms(fwd, SSD_GRAPH_REPS) if card
+                          else dev_ms(fwd, dev)),
+               "ms": (graph_ms(fwd_bwd, SSD_GRAPH_REPS) if card
+                      else dev_ms(fwd_bwd, dev)),
+               "library_ms": None}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["fwd_share_of_bound"] = row["fwd_bound_ms"] / row["fwd_ms"]
+        row["wall_s"] = time.perf_counter() - t0
+        rows.append(row)
+        fault_s = "".join(f", planted fault ({k_}) {v_:.3g}"
+                          for k_, v_ in faults.items())
+        log(f"  ssd chunk scan {label} ({dt_name}, {S // Q} chunks): rms "
+            f"shares needed: y {need:.3g} (fp32 plain), {need_ref:.3g} "
+            f"(reference dtypes), "
+            + ", ".join(f"{k_} {grad[k_]:.3g}" for k_ in names)
+            + " (fp32 autograd), "
+            + ", ".join(f"{k_} {grad_plain[k_]:.3g}" for k_ in names)
+            + f" (plain backward){fault_s}; first call {t_first:.2f} s; "
+            f"fwd {row['fwd_ms']:.3f} ms, fwd+bwd {row['ms']:.3f} ms (bound "
+            f"{row['fwd_bound_ms']:.4f} / {row['bound_ms']:.4f} ms, "
+            f"{row['bound_by']}; {100 * row['fwd_share_of_bound']:.1f}% / "
+            f"{100 * row['share_of_bound']:.1f}%); plain "
+            f"{row['plain_fwd_ms']:.2f} / {row['plain_ms']:.2f} ms; library "
+            f"none; {row['wall_s']:.1f} s")
+        del x, dt, A, B, C, dy, y, cum, st
+        if card:
+            torch.cuda.empty_cache()
+    out = {"rows": rows}
+    if card:
+        main = next(c for c in cases if c[0] == SSD_SCAN_MAIN)
+        other = next(c for c in cases if c[0] != SSD_SCAN_MAIN
+                     and c[8] == main[8] and c[2] <= main[2])
+        out["graph"] = ssd_graph_check(main, other, gen, dev, failures)
+    if failures:
+        raise AssertionError("ssd chunk scan: " + "; ".join(failures))
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4798,12 +5229,14 @@ def main() -> int:
     from repro_torch.kernels import int8_matmul as I8
     from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import flash_attention as FA
-    with ThreadPoolExecutor(7) as pool:
+    from repro_torch.kernels import ssd_scan as SS
+    with ThreadPoolExecutor(8) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
                  pool.submit(I8.build_library), pool.submit(GG.build_library),
                  pool.submit(GG.build_sm90_library),
                  pool.submit(FA.build_library),
-                 pool.submit(FA.build_library, FA.SOURCE_SM90)]
+                 pool.submit(FA.build_library, FA.SOURCE_SM90),
+                 pool.submit(SS.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -5105,6 +5538,14 @@ def main() -> int:
     log(f"flash-attention phase done in {report['flash']['wall_s']:.1f} s "
         f"[{card}]")
 
+    # 15. the SSD chunk-scan kernel, before the phases that run it ----------
+    torch.cuda.empty_cache()
+    log("phase 15: the SSD chunk-scan kernel against its plain versions")
+    report["ssd_scan"] = ssd_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    log(f"SSD chunk-scan phase done in {report['ssd_scan']['wall_s']:.1f} s "
+        f"[{card}]")
+
     # 10. LM serving (python -m repro_torch.launch.serve) and its kernels -----
     t0 = time.perf_counter()
     log(f"phase 10a: the LM kernels against their plain versions (device "
@@ -5188,14 +5629,35 @@ def main() -> int:
             f"{pre_moe['ms']:.1f} ms ({pre_moe['tok_s']:.0f} prefill tok/s), "
             f"grouped GEMM {pre_moe['grouped_gemm_launches']} launches (by "
             f"route {pre_moe['grouped_gemm_routes']}) [{card}]")
+        log(f"phase 13b': {PREFILL_SSM[0]} at full depth, B {PREFILL_SSM[1]}"
+            f" x S {PREFILL_SSM[2]}, under the local mesh")
+        pre_ssm = prefill_ssm_phase(dev, args.seed)
+        log(f"  {pre_ssm['arch']} x{pre_ssm['layers']} layers: "
+            f"{', '.join(f'{m:.1f}' for m in pre_ssm['calls_ms'])} ms "
+            f"(median {pre_ssm['median_ms']:.1f} ms, "
+            f"{pre_ssm['tok_s']:.0f} prefill tok/s), peak device memory "
+            f"{pre_ssm['peak_gb']:.2f} GB; SSD chunk scan "
+            f"{pre_ssm['ssd_launches']}; one traced call: device busy "
+            f"{pre_ssm['device_busy_ms']:.1f} of "
+            f"{pre_ssm['profiled_wall_ms']:.1f} ms ("
+            f"{100 * pre_ssm['device_busy_ms'] / pre_ssm['profiled_wall_ms']:.1f}"
+            f"%); {pre_ssm['wall_s']:.1f} s [{card}]")
+        for t_ms, count, ev in pre_ssm["top_device_events"]:
+            log(f"    {t_ms:9.3f} ms  x{count:<7d} {ev[:90]}")
         log(f"phase 13c: prefill (card) against decode (card) and prefill "
             f"(CPU), B {PREFILL_AGREE_BATCH} x S {PREFILL_AGREE_SEQ}")
         agree = [prefill_agree_phase(name, layers, dev, args.seed, dt)
                  for name, layers, dt in PREFILL_AGREE]
+        agree += [prefill_agree_phase(name, layers, dev, args.seed, dt,
+                                      hold_decode=False)
+                  for name, layers, dt in PREFILL_AGREE_CPU_ONLY]
         for r in agree:
+            own = ("" if r["decode_held"] else
+                   f" (logged, not held; the CPU's own prefill against its "
+                   f"decode {r['cpu_own_decode_gap_over_range']:.4f})")
             log(f"  {r['arch']} x{r['layers']} layers, "
                 f"{r['compute_dtype']}: max |prefill - "
-                f"decode| / max |logit| {r['decode_gap_over_range']:.4f} "
+                f"decode| / max |logit| {r['decode_gap_over_range']:.4f}{own} "
                 f"({r['decode_rows_held']} rows held, argmax agrees "
                 f"{100 * r['decode_argmax_agree']:.0f}%), against the CPU "
                 f"{r['cpu_gap_over_range']:.4f} ({r['cpu_rows_held']} rows "
@@ -5211,7 +5673,8 @@ def main() -> int:
     dry = dryrun_check(done, pre, card)
     log("phase 13e: plan_parallelism on the H100 preset at train_4k")
     plans = planner_rows()
-    report["prefill"] = {"full": pre, "moe": pre_moe, "agree": agree,
+    report["prefill"] = {"full": pre, "moe": pre_moe, "ssm": pre_ssm,
+                         "agree": agree,
                          "dryrun": dry, "plans": plans,
                          "wall_s": time.perf_counter() - t0}
     log(f"prefill and dry-run phase done in {report['prefill']['wall_s']:.1f}"
@@ -5397,6 +5860,34 @@ def main() -> int:
         # the card's path before the kernel (the naive fp32 scores)
         "fwd_before_ms": fa["before_fwd_ms"],
     }]
+    sc = main_row(report["ssd_scan"]["rows"], case=SSD_SCAN_MAIN)
+    # 11c's, 13b''s and 13c's calls: a forward three launches, a backward six
+    sc_calls = [r["ssd_launches"] for r in train_full] + \
+        [pre_ssm["ssd_launches"]] + [r["ssd_launches"] for r in agree]
+    sc_pass = {k: sum(c[k] for c in sc_calls) for k in ("fwd", "bwd")}
+    kernels += [{
+        "name": "ssd_chunk_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_scan.cu",
+        "replaces": "src/repro/models/ssm.py:93",
+        "launches": SS.FWD_LAUNCHES * sc_pass["fwd"]
+        + SS.BWD_LAUNCHES * sc_pass["bwd"],
+        "calls_by_pass": sc_pass,
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in report["ssd_scan"]["rows"]),
+        # forward + backward at mamba2-780m's 11c shape (B 4 x S 2048, 48
+        # heads, head_dim 64, d_state 128, Q 256); plain: ssd_chunk_scan_ref
+        # in the reference's dtypes under autograd, the card's path before
+        # the kernel
+        "ms": sc["ms"],
+        "plain_ms": sc["plain_ms"],
+        "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"],
+        "library_ms": None,
+        "fwd_ms": sc["fwd_ms"],
+        "fwd_bound_ms": sc["fwd_bound_ms"],
+        "fwd_plain_ms": sc["plain_fwd_ms"],
+    }]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -5405,7 +5896,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention, "
-        "grouped_gemm and flash_attention (cuda, sm_90a; grouped_gemm_sm90.cu"
+        "grouped_gemm, flash_attention and ssd_chunk_scan (cuda, sm_90a; "
+        "grouped_gemm_sm90.cu"
         " and flash_attention_sm90.cu on every bf16 launch, grouped_gemm.cu's"
         " tiles and flash_attention.cu's mma route for fp32), "
         "ssd_decode_step, cross_entropy and adamw_step (triton)")

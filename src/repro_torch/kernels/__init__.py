@@ -4,7 +4,9 @@ INT8 GEMM at decode shapes in its own CUDA source and the planner that
 routes between the two (:mod:`.int8_matmul`), the LM decode attention in
 CUDA (:mod:`.decode_attention`; the CUDA sources built by :mod:`.nvcc`
 at first use), the grouped expert GEMM of expert-parallel MoE in CUDA
-(:mod:`.grouped_gemm`), the SSD decode step, the training loss's cross-entropy
+(:mod:`.grouped_gemm`), the attention core and the Mamba-2 SSD chunk
+scan of training and prefill in CUDA (:mod:`.flash_attention`,
+:mod:`.ssd_scan`), the SSD decode step, the training loss's cross-entropy
 and the AdamW step in Triton (:mod:`.ssd_decode`, :mod:`.cross_entropy`,
 :mod:`.adamw`, their sources loaded by :mod:`.triton_source`;
 sources under ``csrc/``), their plain

@@ -2,11 +2,13 @@
 
 Counterpart of :mod:`repro.models.ssm`.  Implements the chunked SSD
 algorithm (arXiv:2405.21060): the sequence is split into chunks; within
-a chunk the quadratic dual form runs as einsums over ``(Q, Q)``
-decay-masked scores, and a Python loop carries the ``(d_state,
-head_dim)`` recurrent state across chunks (the reference's
-``lax.scan``).  Single-token decode is the constant-memory recurrence,
-whose state update and readout run in
+a chunk the quadratic dual form runs over ``(Q, Q)`` decay-masked
+scores, and the ``(d_state, head_dim)`` recurrent state is carried
+across chunks (the reference's ``lax.scan``), in
+:func:`repro_torch.kernels.ssd_scan.ssd_chunk_scan`: the CUDA kernel
+(forward and backward) on CUDA tensors, the reference's einsums and a
+Python loop on the CPU and ``meta``.  Single-token decode is the
+constant-memory recurrence, whose state update and readout run in
 :func:`repro_torch.kernels.ssd_decode.ssd_decode_step`: the Triton
 kernel on CUDA (the state updated in place), its plain version on the
 CPU.
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.ssd_decode import ssd_decode_step
+from ..kernels.ssd_scan import ssd_chunk_scan
 from .layers import _normal, dense_init, rmsnorm, softplus
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "ssm_state_init"]
@@ -121,7 +124,6 @@ def _ssm_apply_local(cfg: ArchConfig, p: Params,
     bsz, S, _ = u.shape
     Q = min(s.chunk, S)
     assert S % Q == 0, f"seq {S} not divisible by SSD chunk {Q}"
-    nc = S // Q
     g = s.n_groups
     hp = s.head_dim
     f32 = torch.float32
@@ -133,51 +135,13 @@ def _ssm_apply_local(cfg: ArchConfig, p: Params,
 
     dt = softplus(dt_raw.to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])                              # (nh,)
-    x = x.reshape(bsz, nc, Q, nh, hp)
-    B = B.reshape(bsz, nc, Q, g, s.d_state)
-    C = C.reshape(bsz, nc, Q, g, s.d_state)
-    dt = dt.reshape(bsz, nc, Q, nh)
-    hpg = nh // g                                           # heads per group
-    dA = dt * A                                             # (b,c,Q,nh)
-    cum = torch.cumsum(dA, dim=2)                           # (b,c,Q,nh)
-
-    # ---- intra-chunk (dual quadratic form) --------------------------------
-    # L[i,j] = exp(cum_i - cum_j) for i >= j; masked before exp
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b,c,Q,Q,nh)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                 device=u.device))
-    L = torch.exp(diff.masked_fill(~mask[None, None, :, :, None],
-                                   -math.inf))
-    # scores[i,j] = (C_i . B_j) * L[i,j] * dt_j
-    CB = torch.einsum("bcqgn,bcsgn->bcqsg", C, B)           # (b,c,Q,Q,g)
-    CB = torch.repeat_interleave(CB, hpg, dim=-1)           # (b,c,Q,Q,nh)
-    W = CB * L * dt[:, :, None, :, :]
-    y_diag = torch.einsum("bcqsh,bcshp->bcqhp", W.to(u.dtype), x)
-
-    # ---- chunk summary states ---------------------------------------------
-    decay_end = torch.exp(cum[:, :, -1:, :] - cum)          # (b,c,Q,nh)
-    Bh = torch.repeat_interleave(B, hpg, dim=-2).reshape(
-        bsz, nc, Q, nh, s.d_state)
-    states = torch.einsum("bcqh,bcqhn,bcqhp->bchnp",
-                          (decay_end * dt).to(u.dtype), Bh, x)
-
-    # ---- inter-chunk recurrence (emit h_{c-1}) ----------------------------
-    chunk_decay = torch.exp(cum[:, :, -1, :])               # (b,c,nh)
-    h = torch.zeros((bsz, nh, s.d_state, hp), dtype=u.dtype,
-                    device=u.device)
-    prev = []
-    for c in range(nc):
-        prev.append(h)
-        h = h * chunk_decay[:, c, :, None, None].to(h.dtype) \
-            + states[:, c]
-    h_prev = torch.stack(prev, dim=1)                       # (b,c,nh,n,p)
-
-    Ch = torch.repeat_interleave(C, hpg, dim=-2).reshape(
-        bsz, nc, Q, nh, s.d_state)
-    y_off = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", Ch, h_prev,
-                         torch.exp(cum).to(u.dtype))
-
-    y = y_diag + y_off + x * p["D"][..., None].to(u.dtype)
+    x = x.reshape(bsz, S, nh, hp)
+    # y_diag + y_off: the kernel on CUDA tensors, the reference's
+    # arithmetic on the CPU and meta.  A in fp32: at bf16 compute the cast
+    # A_log's values, converted exactly (dt * A promotes to fp32 alike)
+    y = ssd_chunk_scan(x, dt, A.to(f32), B.reshape(bsz, S, g, s.d_state),
+                       C.reshape(bsz, S, g, s.d_state), s.chunk)
+    y = y + x * p["D"][..., None].to(u.dtype)
     y = y.reshape(bsz, S, d_in)
     y = rmsnorm(y * F.silu(z), p["norm_w"])
     return y @ p["out_proj"]
