@@ -284,8 +284,10 @@ script exits non-zero):
    route planned for their compute dtype (``fa_routes_check``).
 
 15. the SSD chunk-scan kernel (:func:`ssd_phase`), run before phase 10:
-   its forward and backward (``kernels/ssd_scan.py``,
-   ``csrc/ssd_chunk_scan.cu``) at ``SSD_SCAN_CASES`` (mamba2-780m at B 4 x
+   its forward and backward (``kernels/ssd_scan.py``; bf16 on the ``sm90``
+   route, ``csrc/ssd_chunk_scan_sm90.cu``, and on the ``mma`` route,
+   ``csrc/ssd_chunk_scan.cu``, each held to the same limits; fp32 on
+   ``mma``) at ``SSD_SCAN_CASES`` (mamba2-780m at B 4 x
    S 2048 and B 1 x S 32768, jamba-1.5's SSD geometry at B 1 x S 4096,
    S 64 at Q 64, S = Q = 256, the reduced geometry in fp32; x, B and C
    views of one conv row, as the layer splits them): y within
@@ -297,17 +299,24 @@ script exits non-zero):
    refused at every case of more than one chunk; forward and backward
    captured in one CUDA graph, replays equal to eager calls bit for bit;
    each case's forward and forward + backward timed by graph replay
-   beside its bound ``max(FLOPs / 989e12, bytes / 3.35e12)``
-   (:func:`ssd_bound`) and the plain version (the card's path before the
-   kernel); no PyTorch call computes the scan.  11b, 11c, 13b' and 13c
-   count the scan's calls on their paths and assert them.
+   (a bf16 case on the two routes in turns) beside its bound
+   ``max(FLOPs / 989e12, bytes / 3.35e12)`` (:func:`ssd_bound`) and the
+   plain version (the card's path before the kernel); no PyTorch call
+   computes the scan; ``ssd_redesign_checks`` logs the ``sm90`` route
+   against the ``mma`` route (``SSD_REDESIGN_GAIN`` at
+   ``SSD_SCAN_MAIN``).  11b, 11c, 13b' and 13c count the scan's calls on
+   their paths and assert them, every launch on the route planned for
+   their compute dtype (``ssd_routes_check``).  11c's mamba2-780m also
+   traces one step with the host's ops and their input shapes
+   (:func:`op_profile`).
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 10d's, the decode kernels' 10c's, the training kernels' 11c's, the
 grouped GEMM's 10c's, 11c's and 13b's, the flash attention's 11c's,
 13a's and 13c's (a forward one launch, a backward three), the SSD chunk
-scan's 11c's, 13b''s and 13c's (a forward three, a backward six).  Each
+scan's 11c's, 13b''s and 13c's (on the sm90 route a forward four, a
+backward seven; on mma three and six).  Each
 record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
@@ -523,6 +532,10 @@ TRAIN_FULL = [("mamba2-780m", None), ("phi4-mini-3.8b", 8),
               ("olmoe-1b-7b", 4)]
 TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 20, 4, 2048
 TRAIN_TRACE_STEPS = 8
+# 11c's mamba2-780m: one more step traced with the host's ops and their
+# input shapes, which attributes each device kernel to the op that launched
+# it; the OP_TOP (op, shapes) pairs by that device time are kept
+OP_TRACE_STEPS, OP_TOP = 1, 12
 # 11d: train.main --reduced (olmoe-1b-7b), saving at 3 and 6, step_6
 # removed and resumed; every leaf of the new step_6 within RESUME_TOL
 # (rtol, atol) of the first (the norm's fp64 atomics land in another order
@@ -744,6 +757,10 @@ SSD_TOL_GRAD_PLAIN = {"bfloat16": (0.25, 2.0 ** -6),
                       "float32": (1e-5, 1e-5)}
 # calls a CUDA graph holds in phase 15's timings
 SSD_GRAPH_REPS = 4
+# the sm90 route's check (logged met / MISSED): at SSD_SCAN_MAIN its
+# forward + backward at least SSD_REDESIGN_GAIN times faster than the mma
+# route's in the same call
+SSD_REDESIGN_GAIN = 2.0
 
 def log(*a):
     print(*a, flush=True)
@@ -837,6 +854,27 @@ def device_profile(fn, top: int = 5, cpu: bool = True):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     return wall_ms, sum(r[0] for r in rows), rows[:top]
+
+
+def op_profile(fn, top: int = OP_TOP) -> list:
+    """One ``torch.profiler`` traced run of ``fn`` with the host's ops and
+    their input shapes: the ``top`` (op, input shapes) pairs by the device
+    time of the kernels each launched itself, as ``[ms, count, op,
+    shapes]``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key,
+                    str(e.input_shapes))
+                   for e in prof.key_averages(group_by_input_shape=True)
+                   if e.device_type == DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    return [list(r) for r in rows[:top]]
 
 
 def int_mm_operands(a, w):
@@ -3173,6 +3211,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
             flash = dict(FA.launches_by_pass)
             flash_routes = dict(FA.launches_by_route)
             ssd = dict(SS.launches_by_pass)
+            ssd_routes = dict(SS.launches_by_route)
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -3196,7 +3235,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
            "update_gap_over_reach": worst, "far_share": far / total,
            "card_s": t_dev, "cpu_s": t_cpu, "flash_launches": flash,
            "flash_routes": flash_routes, "ssd_launches": ssd,
-           "wall_s": time.perf_counter() - t_start}
+           "ssd_routes": ssd_routes, "wall_s": time.perf_counter() - t_start}
     # the flash-attention kernel and the SSD chunk scan: a forward an
     # attention (SSM) layer, again in the block's recompute under remat,
     # and a backward
@@ -3209,6 +3248,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
     if not ok:
         raise AssertionError(f"{name} train step, card against CPU: {row}")
     fa_routes_check(f"{name} train step", flash_routes, cfg.compute_dtype)
+    ssd_routes_check(f"{name} train step", ssd_routes, ssd, cfg, seq)
     return row
 
 
@@ -3223,13 +3263,36 @@ def fa_routes_check(label: str, routes: dict, compute_dtype: str) -> None:
                              f"({compute_dtype})")
 
 
+def ssd_routes_check(label: str, routes: dict, calls: dict, cfg,
+                     seq: int) -> None:
+    """Every SSD chunk-scan launch of a run took the route that
+    ``ssd_scan.route`` plans for the run's compute dtype and ``cfg``'s SSD
+    at ``seq``: ``sm90`` for bf16 (mamba2-780m's and jamba's geometry),
+    ``mma`` for fp32; ``ROUTE_LAUNCHES`` a call (``launches_by_route``)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    want = {r: 0 for r in SS.ROUTES}
+    if calls["fwd"] or calls["bwd"]:
+        s = cfg.ssm
+        rt = SS.route(getattr(torch, cfg.compute_dtype),
+                      SS.chunk_len(seq, s.chunk), s.d_state, s.head_dim)
+        nf, nb = SS.ROUTE_LAUNCHES[rt]
+        want[rt] = nf * calls["fwd"] + nb * calls["bwd"]
+    if routes != want:
+        raise AssertionError(f"{label}: SSD chunk-scan launches by route "
+                             f"{routes}, expected {want} "
+                             f"({cfg.compute_dtype})")
+
+
 def train_loop(cfg, device, steps: int, batch: int, seq: int,
-               trace_steps: int = 0, seed: int = 0) -> dict:
+               trace_steps: int = 0, seed: int = 0,
+               op_steps: int = 0) -> dict:
     """``launch.train.main``'s loop (its data stream, pinned batches, lr
     schedule and AdamW, under its local mesh) through
     ``steps.make_train_step`` for ``steps`` steps, the launches of the
     training kernels and the grouped GEMM counted over them; then
-    ``trace_steps`` more in one ``torch.profiler`` trace."""
+    ``trace_steps`` more in one ``torch.profiler`` trace, and
+    ``op_steps`` more in one with the host's ops (:func:`op_profile`)."""
     import numpy as np
     import torch
     from repro_torch import tree as tree_util
@@ -3285,6 +3348,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "flash_routes": dict(FA.launches_by_route),
            "ssm_layers": ssm_layers(cfg),
            "ssd_launches": dict(SS.launches_by_pass),
+           "ssd_routes": dict(SS.launches_by_route),
            "compute_dtype": cfg.compute_dtype,
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
@@ -3297,6 +3361,10 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
         row.update(traced_steps=trace_steps, profiled_wall_ms=wall,
                    device_busy_ms=busy, top_device_events=top,
                    trace_s=time.perf_counter() - t0)
+    if op_steps:
+        row["op_traced_steps"] = op_steps
+        row["top_ops_by_shape"] = op_profile(
+            lambda: [one() for _ in range(op_steps)])
     row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     stream.close()
     return row
@@ -3397,12 +3465,15 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "flash_routes": dict(FA.launches_by_route),
                    "ssm_layers": ssm_layers(cfg),
                    "ssd_launches": dict(SS.launches_by_pass),
+                   "ssd_routes": dict(SS.launches_by_route),
                    "compute_dtype": cfg.compute_dtype,
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
-                                TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
+                                TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed,
+                                op_steps=OP_TRACE_STEPS)
             for k in ("leaves", "traced_steps", "profiled_wall_ms",
-                      "device_busy_ms", "top_device_events", "trace_s"):
+                      "device_busy_ms", "top_device_events", "trace_s",
+                      "op_traced_steps", "top_ops_by_shape"):
                 row[k] = traced[k]
             for line in (lines[0], lines[-2], lines[-1]):
                 log(f"  {line}")
@@ -3411,6 +3482,8 @@ def train_full_phase(device, seed: int = 0) -> list:
                              TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
         label = name if layers is None else f"{name} x{layers} layers"
         check_training(label, row)
+        ssd_routes_check(label, row["ssd_routes"], row["ssd_launches"], cfg,
+                         row["seq"])
         row.update(arch=name, layers=cfg.n_layers, label=label,
                    wall_s=time.perf_counter() - t0,
                    tok_s=row["batch"] * row["seq"] / (row["median_ms"] / 1e3))
@@ -3426,12 +3499,18 @@ def train_full_phase(device, seed: int = 0) -> list:
             f"GEMM {row['grouped_gemm_launches']} (by route "
             f"{row['grouped_gemm_routes']}), flash attention "
             f"{row['flash_launches']}, SSD chunk scan "
-            f"{row['ssd_launches']}; "
+            f"{row['ssd_launches']} (launches by route {row['ssd_routes']}); "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
         for ms, count, ev in row["top_device_events"]:
             log(f"    {ms:9.3f} ms  x{count:<5d} {ev[:90]}")
+        if "top_ops_by_shape" in row:
+            log(f"  {label}: {row['op_traced_steps']} more traced step, ops "
+                f"by the device time of the kernels each launched, with "
+                f"their input shapes:")
+            for ms, count, op, shapes in row["top_ops_by_shape"]:
+                log(f"    {ms:9.3f} ms  x{count:<5d} {op} {shapes[:120]}")
         torch.cuda.empty_cache()
     return rows
 
@@ -4214,12 +4293,14 @@ def prefill_ssm_phase(device, seed: int = 0) -> dict:
         SS.reset_launches()
         logits, ms, peak = prefill_timed(fn, params, batch, reps, True, dev)
         ssd = dict(SS.launches_by_pass)
+        ssd_routes = dict(SS.launches_by_route)
         wall, busy, top = device_profile(lambda: fn(params, batch),
                                          cpu=False)
     want = (reps + 1) * ssm_layers(cfg)
     if ssd != {"fwd": want, "bwd": 0}:
         raise AssertionError(f"{name} prefill: SSD chunk-scan calls {ssd}, "
                              f"expected {want} forwards")
+    ssd_routes_check(f"{name} prefill", ssd_routes, ssd, cfg, s)
     if tuple(logits.shape) != (b, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill: logits "
@@ -4228,7 +4309,8 @@ def prefill_ssm_phase(device, seed: int = 0) -> dict:
     med = statistics.median(ms)
     row = {"arch": name, "layers": cfg.n_layers, "batch": b, "seq": s,
            "calls_ms": ms, "median_ms": med, "tok_s": b * s / (med / 1e3),
-           "peak_gb": peak, "ssd_launches": ssd, "profiled_wall_ms": wall,
+           "peak_gb": peak, "ssd_launches": ssd, "ssd_routes": ssd_routes,
+           "profiled_wall_ms": wall,
            "device_busy_ms": busy, "top_device_events": top,
            "wall_s": time.perf_counter() - t_start}
     del params, logits, batch
@@ -4285,6 +4367,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         flash = dict(FA.launches_by_pass)
         flash_routes = dict(FA.launches_by_route)
         ssd = dict(SS.launches_by_pass)
+        ssd_routes = dict(SS.launches_by_route)
         want = attention_layers(cfg) if dev.type == "cuda" else 0
         if flash != {"fwd": want, "bwd": 0}:
             raise AssertionError(f"{name} prefill: flash-attention calls "
@@ -4294,6 +4377,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
             raise AssertionError(f"{name} prefill: SSD chunk-scan calls "
                                  f"{ssd}, expected {want} forwards")
         fa_routes_check(f"{name} prefill", flash_routes, cfg.compute_dtype)
+        ssd_routes_check(f"{name} prefill", ssd_routes, ssd, cfg, s)
         fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
         with routing_recorded(r_cpu):
             host = fn_cpu(cpu, {"tokens": tokens})
@@ -4331,7 +4415,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     out = {"arch": name, "layers": layers, "batch": b, "seq": s,
            "compute_dtype": cfg.compute_dtype, "flash_launches": flash,
            "flash_routes": flash_routes, "ssd_launches": ssd,
-           "decode_held": hold_decode}
+           "ssd_routes": ssd_routes, "decode_held": hold_decode}
     if not hold_decode:
         out["cpu_own_decode_gap_over_range"] = float(
             (host - own).abs().max()) / float(own.abs().max())
@@ -4996,17 +5080,18 @@ def ssd_inputs(case, gen, device) -> tuple:
 
 
 def ssd_calls(card: bool):
-    """``(fwd, bwd)``: the kernel's entry points on the card; on the CPU
-    (a rehearsal) the plain versions in their place."""
+    """``(fwd, bwd)``: the kernel's entry points on the card (``route=``
+    picks the route); on the CPU (a rehearsal) the plain versions in their
+    place, whatever the route."""
     from repro_torch.kernels import ssd_scan as K
     if card:
         return K.ssd_chunk_scan_fwd_cuda, K.ssd_chunk_scan_bwd_cuda
 
-    def fwd(x, dt, A, B, C, chunk, plant=0):
+    def fwd(x, dt, A, B, C, chunk, plant=0, route=None):
         return (K.ssd_chunk_scan_ref(x, dt, A, B, C, chunk),
                 *K.ssd_chunk_states_ref(x, dt, A, B, C, chunk))
 
-    def bwd(dy, x, dt, A, B, C, cum, state, chunk):
+    def bwd(dy, x, dt, A, B, C, cum, state, chunk, route=None):
         return K.ssd_chunk_scan_bwd_ref(dy, x, dt, A, B, C, chunk)
 
     return fwd, bwd
@@ -5047,19 +5132,106 @@ def ssd_graph_check(case, other, gen, device, failures) -> dict:
                               lambda: fwd_bwd(other)(), failures)
 
 
+def ssd_ms(fn, card: bool, device) -> float:
+    """Device ms of ``fn()`` by CUDA-graph replay (``SSD_GRAPH_REPS``
+    calls a graph); the host's mean on the CPU (a rehearsal)."""
+    return graph_ms(fn, SSD_GRAPH_REPS) if card else dev_ms(fn, device)
+
+
+def ssd_route_checks(label, rt, dt_name, Q, S, x, dt, A, B, C, dy, y32, g32,
+                     before, fwd_call, bwd_call, card, failures) -> dict:
+    """One route's checks of a phase 15 case: y within ``SSD_TOL_F32`` of
+    the fp32 plain forward and ``SSD_TOL_REF`` of the plain one in the
+    reference's dtypes, the gradients within ``SSD_TOL_GRAD`` of autograd
+    of the fp32 plain version and ``SSD_TOL_GRAD_PLAIN`` of
+    ``ssd_chunk_scan_bwd_ref``, the planted faults refused (more than one
+    chunk, on the card); each check's least passing rms share."""
+    import torch
+    from repro_torch.kernels import ssd_scan as K
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    t_first = time.perf_counter()
+    y, cum, st = fwd_call(x, dt, A, B, C, Q, route=rt)
+    grads = bwd_call(dy, x, dt, A, B, C, cum, st, Q, route=rt)
+    if card:
+        torch.cuda.synchronize()
+    t_first = time.perf_counter() - t_first
+    err, rel, ok32 = scaled_within(y, y32, *SSD_TOL_F32[dt_name])
+    need = needed_share(y, y32, SSD_TOL_F32[dt_name][1])
+    _, rel_ref, ok_ref = scaled_within(y, before, *SSD_TOL_REF[dt_name])
+    need_ref = needed_share(y, before, SSD_TOL_REF[dt_name][1])
+    if not (ok32 and ok_ref):
+        failures.append(f"{label} ({rt}): y needs an rms share of {need:.3g} "
+                        f"(fp32 plain), {need_ref:.3g} (plain, reference "
+                        f"dtypes)")
+    g_plain = K.ssd_chunk_scan_bwd_ref(dy, x, dt, A, B, C, Q)
+    grad, grad_plain = {}, {}
+    for name, got, want, want_p in zip(names, grads, g32, g_plain):
+        _, _, g_ok = scaled_within(got, want, *SSD_TOL_GRAD[dt_name])
+        _, _, p_ok = scaled_within(got, want_p, *SSD_TOL_GRAD_PLAIN[dt_name])
+        grad[name] = needed_share(got, want, SSD_TOL_GRAD[dt_name][1])
+        grad_plain[name] = needed_share(got, want_p,
+                                        SSD_TOL_GRAD_PLAIN[dt_name][1])
+        if not (g_ok and p_ok):
+            failures.append(f"{label} ({rt}): {name} needs an rms share of "
+                            f"{grad[name]:.3g} (fp32 autograd), "
+                            f"{grad_plain[name]:.3g} (plain backward)")
+    del g_plain, grads
+    faults = {}
+    if card and S > Q:
+        for fname, bit in (("state dropped", K.PLANT_STATE),
+                           ("diagonal dropped", K.PLANT_DIAG)):
+            bad, _, _ = fwd_call(x, dt, A, B, C, Q, plant=bit, route=rt)
+            _, _, passes = scaled_within(bad, y32, *SSD_TOL_F32[dt_name])
+            faults[fname] = needed_share(bad, y32, SSD_TOL_F32[dt_name][1])
+            if passes:
+                failures.append(f"{label} ({rt}): planted fault ({fname}) "
+                                f"passes, rms share {faults[fname]:.3g}")
+            del bad
+    return {"max_abs_err": err, "err_over_rms": rel,
+            "err_ref_over_rms": rel_ref, "share_needed": need,
+            "share_needed_ref": need_ref, "grad_share_needed": grad,
+            "grad_share_needed_plain": grad_plain,
+            "fault_share_needed": faults, "first_call_s": t_first}
+
+
+def ssd_redesign_checks(rows) -> dict:
+    """The checks the sm90 route is held to (each ``(value, met)``):
+    at ``SSD_SCAN_MAIN`` its forward + backward at least
+    ``SSD_REDESIGN_GAIN`` times faster than the mma route's in the same
+    call and its forward faster; at every bf16 case neither pass slower
+    than the mma route's; logged, not raised."""
+    out = {}
+    for r in rows:
+        if "mma_ms" not in r:
+            continue
+        gain, fgain = r["mma_ms"] / r["ms"], r["mma_fwd_ms"] / r["fwd_ms"]
+        if r["case"] == SSD_SCAN_MAIN:
+            out[f"{r['case']} fwd + bwd, mma route over sm90"] = (
+                gain, gain >= SSD_REDESIGN_GAIN)
+            out[f"{r['case']} fwd, mma route over sm90"] = (fgain,
+                                                           fgain > 1.0)
+        else:
+            out[f"{r['case']} fwd + bwd and fwd, mma route over sm90 (the "
+                f"lesser)"] = (min(gain, fgain), min(gain, fgain) >= 1.0)
+    for k, (v, met) in out.items():
+        log(f"  {k}: {v:.3f} ({'met' if met else 'MISSED'})")
+    return {k: {"value": v, "met": met} for k, (v, met) in out.items()}
+
+
 def ssd_phase(device, seed: int = 0, cases=SSD_SCAN_CASES) -> dict:
     """Phase 15: the SSD chunk-scan kernel against its plain versions at
-    ``cases``: y within ``SSD_TOL_F32`` of ``ssd_chunk_scan_ref`` on fp32
-    upcasts and ``SSD_TOL_REF`` of it in the reference's dtypes; dx, ddt,
-    dA, dB and dC within ``SSD_TOL_GRAD`` of autograd of the fp32 plain
-    version and ``SSD_TOL_GRAD_PLAIN`` of ``ssd_chunk_scan_bwd_ref``;
-    planted faults refused at every case of more than one chunk; a
-    graph-replay check; each case's forward and forward + backward timed
-    by CUDA-graph replay beside its bound and the plain version (the
+    ``cases``, on the route :func:`ssd_scan.route` plans and, for a bf16
+    case planned on ``sm90``, on the ``mma`` route too (``route=``), each
+    held to the same limits (:func:`ssd_route_checks`); a graph-replay
+    check on the planned route; each case's forward and forward + backward
+    timed by CUDA-graph replay (a bf16 case on the two routes in turns:
+    mma, sm90, sm90, mma) beside its bound and the plain version (the
     card's path before the kernel: ``ssd_chunk_scan_ref`` in the
-    reference's dtypes under autograd; no PyTorch call computes the scan).
-    Launches made here compare; they are not counted.  On the CPU (a
-    rehearsal) the plain versions stand in for the kernel."""
+    reference's dtypes under autograd; no PyTorch call computes the scan);
+    the sm90 route's checks logged met / MISSED
+    (:func:`ssd_redesign_checks`).  Launches made here compare; they are
+    not counted.  On the CPU (a rehearsal) the plain versions stand in for
+    the kernel on both routes."""
     import torch
     from repro_torch.kernels import ssd_scan as K
     dev = torch.device(device)
@@ -5073,103 +5245,78 @@ def ssd_phase(device, seed: int = 0, cases=SSD_SCAN_CASES) -> dict:
         label, b, S, nh, hp, g, n, Q, dt_name = case
         t0 = time.perf_counter()
         x, dt, A, B, C, dy = ssd_inputs(case, gen, dev)
-
-        def fwd(plant=0):
-            return fwd_call(x, dt, A, B, C, Q, plant=plant)
-
-        def fwd_bwd():
-            y_, cum_, st_ = fwd()
-            return bwd_call(dy, x, dt, A, B, C, cum_, st_, Q)
-
-        t_first = time.perf_counter()
-        y, cum, st = fwd()
-        grads = bwd_call(dy, x, dt, A, B, C, cum, st, Q)
-        if card:
-            torch.cuda.synchronize(dev)
-        t_first = time.perf_counter() - t_first
+        planned = K.route(getattr(torch, dt_name), K.chunk_len(S, Q), n, hp)
+        routes = (planned, "mma") if planned == "sm90" else (planned,)
         y32, g32 = ssd_plain(x, dt, A, B, C, Q, dy, upcast=True)
         before, _ = ssd_plain(x, dt, A, B, C, Q)
-        err, rel, ok32 = scaled_within(y, y32, *SSD_TOL_F32[dt_name])
-        need = needed_share(y, y32, SSD_TOL_F32[dt_name][1])
-        _, rel_ref, ok_ref = scaled_within(y, before, *SSD_TOL_REF[dt_name])
-        need_ref = needed_share(y, before, SSD_TOL_REF[dt_name][1])
-        if not (ok32 and ok_ref):
-            failures.append(f"{label}: y needs an rms share of {need:.3g} "
-                            f"(fp32 plain), {need_ref:.3g} (plain, reference"
-                            f" dtypes)")
-        g_plain = K.ssd_chunk_scan_bwd_ref(dy, x, dt, A, B, C, Q)
-        grad, grad_plain = {}, {}
-        for name, got, want, want_p in zip(names, grads, g32, g_plain):
-            _, _, g_ok = scaled_within(got, want, *SSD_TOL_GRAD[dt_name])
-            _, _, p_ok = scaled_within(got, want_p,
-                                       *SSD_TOL_GRAD_PLAIN[dt_name])
-            grad[name] = needed_share(got, want, SSD_TOL_GRAD[dt_name][1])
-            grad_plain[name] = needed_share(got, want_p,
-                                            SSD_TOL_GRAD_PLAIN[dt_name][1])
-            if not (g_ok and p_ok):
-                failures.append(f"{label}: {name} needs an rms share of "
-                                f"{grad[name]:.3g} (fp32 autograd), "
-                                f"{grad_plain[name]:.3g} (plain backward)")
-        del g_plain, g32, before
-        faults = {}
-        if card and S > Q:
-            for fname, bit in (("state dropped", K.PLANT_STATE),
-                               ("diagonal dropped", K.PLANT_DIAG)):
-                bad, _, _ = fwd(bit)
-                _, _, passes = scaled_within(bad, y32,
-                                             *SSD_TOL_F32[dt_name])
-                faults[fname] = needed_share(bad, y32,
-                                             SSD_TOL_F32[dt_name][1])
-                if passes:
-                    failures.append(f"{label}: planted fault ({fname}) "
-                                    f"passes, rms share {faults[fname]:.3g}")
-                del bad
-        del y32, grads
+        row = {"case": label, "B": b, "S": S, "nh": nh, "hp": hp, "g": g,
+               "N": n, "Q": Q, "dtype": dt_name, "chunks": S // Q,
+               "route": planned}
+        for rt in routes:
+            got = ssd_route_checks(label, rt, dt_name, Q, S, x, dt, A, B, C,
+                                   dy, y32, g32, before, fwd_call, bwd_call,
+                                   card, failures)
+            pre = "" if rt == planned else f"{rt}_"
+            row.update({pre + k: v for k, v in got.items()})
+        del y32, g32, before
         bounds = ssd_bound(case)
+
+        def fwd(rt=None):
+            return fwd_call(x, dt, A, B, C, Q, route=rt)
+
+        def fwd_bwd(rt=None):
+            y_, cum_, st_ = fwd(rt)
+            return bwd_call(dy, x, dt, A, B, C, cum_, st_, Q, route=rt)
 
         def plain_fwd_bwd():
             ssd_plain(x, dt, A, B, C, Q, dy)
 
-        row = {"case": label, "B": b, "S": S, "nh": nh, "hp": hp, "g": g,
-               "N": n, "Q": Q, "dtype": dt_name, "chunks": S // Q,
-               "max_abs_err": err, "err_over_rms": rel,
-               "err_ref_over_rms": rel_ref, "share_needed": need,
-               "share_needed_ref": need_ref, "grad_share_needed": grad,
-               "grad_share_needed_plain": grad_plain,
-               "fault_share_needed": faults, "first_call_s": t_first,
-               "fwd_bound_ms": bounds["fwd"][0],
-               "fwd_bound_by": bounds["fwd"][1],
-               "bound_ms": bounds["fwd_bwd"][0],
-               "bound_by": bounds["fwd_bwd"][1],
-               "flops": bounds["fwd_bwd"][2],
-               "plain_fwd_ms": once_ms(lambda: ssd_plain(x, dt, A, B, C, Q),
-                                       dev),
-               "plain_ms": once_ms(plain_fwd_bwd, dev),
-               "fwd_ms": (graph_ms(fwd, SSD_GRAPH_REPS) if card
-                          else dev_ms(fwd, dev)),
-               "ms": (graph_ms(fwd_bwd, SSD_GRAPH_REPS) if card
-                      else dev_ms(fwd_bwd, dev)),
-               "library_ms": None}
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        row["fwd_share_of_bound"] = row["fwd_bound_ms"] / row["fwd_ms"]
+        row.update({
+            "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
+            "bound_ms": bounds["fwd_bwd"][0], "bound_by": bounds["fwd_bwd"][1],
+            "flops": bounds["fwd_bwd"][2],
+            "plain_fwd_ms": once_ms(lambda: ssd_plain(x, dt, A, B, C, Q), dev),
+            "plain_ms": once_ms(plain_fwd_bwd, dev), "library_ms": None})
+        # the planned route timed in turns with the mma route (bf16 on sm90)
+        turns = ("mma", "sm90", "sm90", "mma") if planned == "sm90" \
+            else (planned,)
+        times = {rt: ([], []) for rt in turns}
+        for rt in turns:
+            times[rt][0].append(ssd_ms(lambda: fwd(rt), card, dev))
+            times[rt][1].append(ssd_ms(lambda: fwd_bwd(rt), card, dev))
+        for rt, (tf, tb) in times.items():
+            pre = "" if rt == planned else f"{rt}_"
+            row[pre + "fwd_ms"] = sum(tf) / len(tf)
+            row[pre + "ms"] = sum(tb) / len(tb)
+            row[pre + "fwd_ms_runs"], row[pre + "ms_runs"] = tf, tb
+            row[pre + "share_of_bound"] = row["bound_ms"] / row[pre + "ms"]
+            row[pre + "fwd_share_of_bound"] = (row["fwd_bound_ms"]
+                                               / row[pre + "fwd_ms"])
         row["wall_s"] = time.perf_counter() - t0
         rows.append(row)
-        fault_s = "".join(f", planted fault ({k_}) {v_:.3g}"
-                          for k_, v_ in faults.items())
-        log(f"  ssd chunk scan {label} ({dt_name}, {S // Q} chunks): rms "
-            f"shares needed: y {need:.3g} (fp32 plain), {need_ref:.3g} "
-            f"(reference dtypes), "
-            + ", ".join(f"{k_} {grad[k_]:.3g}" for k_ in names)
-            + " (fp32 autograd), "
-            + ", ".join(f"{k_} {grad_plain[k_]:.3g}" for k_ in names)
-            + f" (plain backward){fault_s}; first call {t_first:.2f} s; "
-            f"fwd {row['fwd_ms']:.3f} ms, fwd+bwd {row['ms']:.3f} ms (bound "
-            f"{row['fwd_bound_ms']:.4f} / {row['bound_ms']:.4f} ms, "
-            f"{row['bound_by']}; {100 * row['fwd_share_of_bound']:.1f}% / "
-            f"{100 * row['share_of_bound']:.1f}%); plain "
-            f"{row['plain_fwd_ms']:.2f} / {row['plain_ms']:.2f} ms; library "
-            f"none; {row['wall_s']:.1f} s")
-        del x, dt, A, B, C, dy, y, cum, st
+        for rt in routes:
+            pre = "" if rt == planned else f"{rt}_"
+            grad, grad_p = (row[pre + "grad_share_needed"],
+                            row[pre + "grad_share_needed_plain"])
+            fault_s = "".join(f", planted fault ({k_}) {v_:.3g}" for k_, v_
+                              in row[pre + "fault_share_needed"].items())
+            log(f"  ssd chunk scan {label} ({dt_name}, {S // Q} chunks, {rt}"
+                f" route): rms shares needed: y "
+                f"{row[pre + 'share_needed']:.3g} (fp32 plain), "
+                f"{row[pre + 'share_needed_ref']:.3g} (reference dtypes), "
+                + ", ".join(f"{k_} {grad[k_]:.3g}" for k_ in names)
+                + " (fp32 autograd), "
+                + ", ".join(f"{k_} {grad_p[k_]:.3g}" for k_ in names)
+                + f" (plain backward){fault_s}; first call "
+                f"{row[pre + 'first_call_s']:.2f} s; fwd "
+                f"{row[pre + 'fwd_ms']:.3f} ms, fwd+bwd {row[pre + 'ms']:.3f}"
+                f" ms (bound {row['fwd_bound_ms']:.4f} / "
+                f"{row['bound_ms']:.4f} ms, {row['bound_by']}; "
+                f"{100 * row[pre + 'fwd_share_of_bound']:.1f}% / "
+                f"{100 * row[pre + 'share_of_bound']:.1f}%)")
+        log(f"    plain {row['plain_fwd_ms']:.2f} / {row['plain_ms']:.2f} ms;"
+            f" library none; {row['wall_s']:.1f} s")
+        del x, dt, A, B, C, dy
         if card:
             torch.cuda.empty_cache()
     out = {"rows": rows}
@@ -5178,6 +5325,7 @@ def ssd_phase(device, seed: int = 0, cases=SSD_SCAN_CASES) -> dict:
         other = next(c for c in cases if c[0] != SSD_SCAN_MAIN
                      and c[8] == main[8] and c[2] <= main[2])
         out["graph"] = ssd_graph_check(main, other, gen, dev, failures)
+    out["redesign"] = ssd_redesign_checks(rows)
     if failures:
         raise AssertionError("ssd chunk scan: " + "; ".join(failures))
     out["wall_s"] = time.perf_counter() - t_phase
@@ -5236,7 +5384,8 @@ def main() -> int:
                  pool.submit(GG.build_sm90_library),
                  pool.submit(FA.build_library),
                  pool.submit(FA.build_library, FA.SOURCE_SM90),
-                 pool.submit(SS.build_library)]
+                 pool.submit(SS.build_library),
+                 pool.submit(SS.build_library, SS.SOURCE_SM90)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev)
         libs = [f.result() for f in built]
@@ -5861,30 +6010,38 @@ def main() -> int:
         "fwd_before_ms": fa["before_fwd_ms"],
     }]
     sc = main_row(report["ssd_scan"]["rows"], case=SSD_SCAN_MAIN)
-    # 11c's, 13b''s and 13c's calls: a forward three launches, a backward six
-    sc_calls = [r["ssd_launches"] for r in train_full] + \
-        [pre_ssm["ssd_launches"]] + [r["ssd_launches"] for r in agree]
-    sc_pass = {k: sum(c[k] for c in sc_calls) for k in ("fwd", "bwd")}
+    # 11c's, 13b''s and 13c's calls and their launches by route (bf16 on
+    # the sm90 route: four a forward, seven a backward; 13c's fp32 on mma)
+    sc_runs = train_full + [pre_ssm] + agree
+    sc_pass = {k: sum(r["ssd_launches"][k] for r in sc_runs)
+               for k in ("fwd", "bwd")}
+    sc_routes = {k: sum(r["ssd_routes"][k] for r in sc_runs)
+                 for k in SS.ROUTES}
     kernels += [{
         "name": "ssd_chunk_scan",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk_scan.cu",
+        # bf16 on the sm90 route (wgmma fed by TMA); fp32 (13c) on
+        # ssd_chunk_scan.cu's mma route
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_scan_sm90.cu",
         "replaces": "src/repro/models/ssm.py:93",
-        "launches": SS.FWD_LAUNCHES * sc_pass["fwd"]
-        + SS.BWD_LAUNCHES * sc_pass["bwd"],
+        "launches": sum(sc_routes.values()),
         "calls_by_pass": sc_pass,
+        "launches_by_route": sc_routes,
         "max_abs_err": max(r["max_abs_err"]
                            for r in report["ssd_scan"]["rows"]),
         # forward + backward at mamba2-780m's 11c shape (B 4 x S 2048, 48
-        # heads, head_dim 64, d_state 128, Q 256); plain: ssd_chunk_scan_ref
-        # in the reference's dtypes under autograd, the card's path before
-        # the kernel
+        # heads, head_dim 64, d_state 128, Q 256) on the sm90 route;
+        # previous: the mma route (ssd_chunk_scan.cu) on the same inputs,
+        # in turns; plain: ssd_chunk_scan_ref in the reference's dtypes
+        # under autograd, the card's path before the kernel
         "ms": sc["ms"],
+        "previous_ms": sc["mma_ms"],
         "plain_ms": sc["plain_ms"],
         "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"],
         "library_ms": None,
         "fwd_ms": sc["fwd_ms"],
+        "previous_fwd_ms": sc["mma_fwd_ms"],
         "fwd_bound_ms": sc["fwd_bound_ms"],
         "fwd_plain_ms": sc["plain_fwd_ms"],
     }]
@@ -5897,9 +6054,10 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention, "
         "grouped_gemm, flash_attention and ssd_chunk_scan (cuda, sm_90a; "
-        "grouped_gemm_sm90.cu"
-        " and flash_attention_sm90.cu on every bf16 launch, grouped_gemm.cu's"
-        " tiles and flash_attention.cu's mma route for fp32), "
+        "grouped_gemm_sm90.cu, flash_attention_sm90.cu and "
+        "ssd_chunk_scan_sm90.cu on every bf16 launch, grouped_gemm.cu's"
+        " tiles and the mma routes of flash_attention.cu and "
+        "ssd_chunk_scan.cu for fp32), "
         "ssd_decode_step, cross_entropy and adamw_step (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@
 // state, cum and every decay stay fp32 (the reference carries h in bf16);
 // the state enters the tensor-core products as a bf16 operand.
 //
-// Launches (a first version, simple and right; wgmma / TMA is later work):
+// The `mma` route (fp32, bf16 shapes outside ssd_chunk_scan_sm90.cu's
+// contract, and that route's yardstick).  Launches:
 // * forward (3): chunk_state, a block per (b, c, h): cum by a warp scan,
 //   states = B^T ((exp(cum_L - cum) dt) * x) (N x hp, fp32) over the
 //   chunk's Q rows in 64-row steps; state_pass, a block per (b, h, slice of
@@ -1135,48 +1136,59 @@ int launch(K kernel, dim3 grid, int threads, int smem, const Params& p,
   return cudaGetLastError();
 }
 
+// the launches a call makes, by bit (a probe times each alone)
+int g_only = -1;
+
+bool on(int k) { return (g_only >> k) & 1; }
+
 template <typename T, int NP, int HP>
 int run_fwd(const Params& p, cudaStream_t st) {
   const unsigned items = static_cast<unsigned>(
       static_cast<long long>(p.Bsz) * p.nc * p.nh);
-  int e = launch(ssd_chunk_state_kernel<T, NP, HP, false>, dim3(items),
-                 NP * 2, StateShapes<T, NP, HP, false>::kSmem, p, st);
-  if (e) return e;
-  e = launch(ssd_state_pass_kernel, dim3(p.slices, p.Bsz * p.nh),
-             kPassThreads, 0, p, st);
-  if (e) return e;
+  int e = 0;
+  if (on(0))
+    e = launch(ssd_chunk_state_kernel<T, NP, HP, false>, dim3(items), NP * 2,
+               StateShapes<T, NP, HP, false>::kSmem, p, st);
+  if (!e && on(1))
+    e = launch(ssd_state_pass_kernel, dim3(p.slices, p.Bsz * p.nh),
+               kPassThreads, 0, p, st);
   const int tiles = static_cast<int>(cdiv(p.Q, kRows));
-  return launch(ssd_chunk_scan_kernel<T, NP, HP>,
-                dim3(tiles * p.nc * p.nh, p.Bsz), kThreads,
-                ScanShapes<T, NP, HP>::kSmem, p, st);
+  if (!e && on(2))
+    e = launch(ssd_chunk_scan_kernel<T, NP, HP>,
+               dim3(tiles * p.nc * p.nh, p.Bsz), kThreads,
+               ScanShapes<T, NP, HP>::kSmem, p, st);
+  return e;
 }
 
 template <typename T, int NP, int HP>
 int run_bwd(const Params& p, cudaStream_t st) {
   const long long items = static_cast<long long>(p.Bsz) * p.nc * p.nh;
-  int e = launch(ssd_chunk_state_kernel<T, NP, HP, true>,
-                 dim3(static_cast<unsigned>(items)), NP * 2,
-                 StateShapes<T, NP, HP, true>::kSmem, p, st);
-  if (e) return e;
-  e = launch(ssd_state_pass_bwd_kernel, dim3(p.slices, p.Bsz * p.nh),
-             kPassThreads, 0, p, st);
-  if (e) return e;
+  int e = 0;
+  if (on(0))
+    e = launch(ssd_chunk_state_kernel<T, NP, HP, true>,
+               dim3(static_cast<unsigned>(items)), NP * 2,
+               StateShapes<T, NP, HP, true>::kSmem, p, st);
+  if (!e && on(1))
+    e = launch(ssd_state_pass_bwd_kernel, dim3(p.slices, p.Bsz * p.nh),
+               kPassThreads, 0, p, st);
   const int tiles = static_cast<int>(cdiv(p.Q, kRows));
   const dim3 grid(tiles * p.nc * p.nh, p.Bsz);
-  e = launch(ssd_bwd_dx_kernel<T, NP, HP>, grid, kThreads,
-             BwdShapes<T, NP, HP>::kSmem, p, st);
-  if (e) return e;
-  e = launch(ssd_bwd_dc_kernel<T, NP, HP>, grid, kThreads,
-             BwdShapes<T, NP, HP>::kSmem, p, st);
-  if (e) return e;
-  e = launch(ssd_bwd_dt_kernel, dim3(static_cast<unsigned>(cdiv(items, kWarps))),
-             kThreads, 0, p, st);
-  if (e) return e;
-  const long long total =
-      2LL * p.Bsz * p.S * p.G * p.N + p.nh;
-  return launch(ssd_bwd_reduce_kernel<T>,
-                dim3(static_cast<unsigned>(cdiv(total, kPassThreads))),
-                kPassThreads, 0, p, st);
+  if (!e && on(2))
+    e = launch(ssd_bwd_dx_kernel<T, NP, HP>, grid, kThreads,
+               BwdShapes<T, NP, HP>::kSmem, p, st);
+  if (!e && on(3))
+    e = launch(ssd_bwd_dc_kernel<T, NP, HP>, grid, kThreads,
+               BwdShapes<T, NP, HP>::kSmem, p, st);
+  if (!e && on(4))
+    e = launch(ssd_bwd_dt_kernel,
+               dim3(static_cast<unsigned>(cdiv(items, kWarps))), kThreads, 0,
+               p, st);
+  const long long total = 2LL * p.Bsz * p.S * p.G * p.N + p.nh;
+  if (!e && on(5))
+    e = launch(ssd_bwd_reduce_kernel<T>,
+               dim3(static_cast<unsigned>(cdiv(total, kPassThreads))),
+               kPassThreads, 0, p, st);
+  return e;
 }
 
 // the padded (N, hp): bf16 (64, 64), (128, 64) or (128, 128); fp32 always
@@ -1308,6 +1320,10 @@ int ssd_chunk_scan_bwd(int dtype, const void* x, const void* B, const void* C,
   return dtype == kBf16 ? dispatch<__nv_bfloat16>(false, p, st)
                         : dispatch<float>(false, p, st);
 }
+
+// Restricts the next calls to the launches whose bits `mask` sets (-1:
+// all, the default): a probe times each launch alone.
+void ssd_chunk_scan_only(int mask) { g_only = mask; }
 
 const char* ssd_chunk_scan_error_string(int code) {
   if (code == kErrArgs) return "arguments outside the kernel's contract";

@@ -11,12 +11,19 @@ Counterpart of the chunked SSD in :func:`repro.models.ssm.ssm_apply`
 The ``D`` skip, the gate and norm stay in :mod:`repro_torch.models.ssm`.
 
 :func:`ssd_chunk_scan` dispatches on the tensors' device: CUDA tensors go
-through :class:`SSDChunkScan` to the kernel (``csrc/ssd_chunk_scan.cu``,
-CUDA C++ for ``sm_90a`` built by ``nvcc`` at first use; a build or launch
-failure raises): three forward launches (chunk states, the state pass,
-the scan), which save the in-chunk cumsum and the state entering each
-chunk (fp32) and never a (Q, Q) tensor, and six backward launches.  CPU
-and ``meta`` tensors (the dry run) run :func:`ssd_chunk_scan_ref`, the
+through :class:`SSDChunkScan` to the kernel that :func:`route` plans (CUDA
+C++ for ``sm_90a`` built by ``nvcc`` at first use; a build or launch
+failure raises, and never falls back to the other route or the plain
+version).  The forward saves the in-chunk cumsum and the state entering
+each chunk (fp32) and never a (Q, Q) tensor.  bf16 at Q a multiple of 64
+and N, hp of 64 or 128 takes the ``sm90`` route,
+``csrc/ssd_chunk_scan_sm90.cu`` (``wgmma`` fed by TMA; C B^T once per
+group into a bf16 scratch; dB and dC summed over a band of
+:func:`band_heads` heads inside the block): four forward launches, seven
+backward.  fp32, and bf16 shapes outside that, take the ``mma`` route,
+``csrc/ssd_chunk_scan.cu`` (``mma.sync``; FMA in fp32): three forward
+launches (chunk states, the state pass, the scan), six backward.  CPU and
+``meta`` tensors (the dry run) run :func:`ssd_chunk_scan_ref`, the
 reference's arithmetic, under autograd.
 
 x, B and C are read where they lie (the last dim contiguous, every other
@@ -46,26 +53,70 @@ __all__ = ["ssd_chunk_scan", "ssd_chunk_scan_cuda", "ssd_chunk_scan_ref",
            "ssd_chunk_scan_fwd_cuda", "ssd_chunk_scan_bwd_cuda",
            "SSDChunkScan", "build_library", "SOURCE", "launches_by_pass",
            "reset_launches", "chunk_len", "PLANT_STATE", "PLANT_DIAG",
-           "FWD_LAUNCHES", "BWD_LAUNCHES"]
+           "route", "ROUTES", "SOURCE_SM90", "ROUTE_LAUNCHES",
+           "launches_by_route", "band_heads", "scratch_shapes", "load_sm90"]
 
+# the mma route's source
 SOURCE = nvcc.CSRC / "ssd_chunk_scan.cu"
+# the sm90 route's source
+SOURCE_SM90 = nvcc.CSRC / "ssd_chunk_scan_sm90.cu"
+ROUTES = ("sm90", "mma")
 # the kernel's dtypes and their codes
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# kernel launches of a forward and of a backward call
-FWD_LAUNCHES = 3
-BWD_LAUNCHES = 6
-# must match the .cu (kMaxQ, kSlice)
+# kernel launches of a forward and of a backward call, by route
+ROUTE_LAUNCHES = {"sm90": (4, 7), "mma": (3, 6)}
+# the sm90 route's row tile (kBox's 64 rows): Q, N and hp are multiples
+SM90_TILE = 64
+# the card's SMs: band_heads keeps two waves of backward jobs on them
+_SMS = 132
+# must match the .cu (kMaxQ, kSlice; the sm90 source's kPart)
 MAX_Q = 256
 _SLICE = 1024
+_SM90_PART = 128
 # planted faults (``plant=``), for the smoke check only: chunk 1's
 # carried state dropped; the intra-chunk mask's diagonal dropped
 PLANT_STATE = 1
 PLANT_DIAG = 2
 
 _LIB: Optional[ctypes.CDLL] = None
-# calls since the last reset (CPU calls excluded): "fwd" FWD_LAUNCHES
-# launches each, "bwd" BWD_LAUNCHES
+_SM90_LIB: Optional[ctypes.CDLL] = None
+# calls since the last reset (CPU calls excluded), by pass
 launches_by_pass: Dict[str, int] = {"fwd": 0, "bwd": 0}
+# kernel launches since the last reset by route (ROUTE_LAUNCHES a call)
+launches_by_route: Dict[str, int] = {r: 0 for r in ROUTES}
+
+
+def route(dtype: torch.dtype, Q: int, N: int, hp: int) -> str:
+    """The planned kernel: ``"sm90"`` (``wgmma`` fed by TMA) for bf16 at
+    Q a multiple of 64 and N, hp of 64 or 128; ``"mma"`` (``mma.sync``;
+    FMA in fp32) for fp32 and the other bf16 shapes it takes (Q a
+    multiple of 16 up to 256; N, hp multiples of 16 up to 128).  Raises
+    where neither takes the shape."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no SSD chunk-scan kernel for {dtype}")
+    if Q % 16 or not 16 <= Q <= MAX_Q or N % 16 or not 16 <= N <= 128 \
+            or hp % 16 or not 16 <= hp <= 128:
+        raise ValueError(f"no SSD chunk-scan kernel for Q {Q}, N {N}, hp "
+                         f"{hp} (Q a multiple of 16 up to {MAX_Q}; N, hp "
+                         f"multiples of 16 up to 128)")
+    if dtype == torch.bfloat16 and Q % SM90_TILE == 0 and N in (64, 128) \
+            and hp in (64, 128):
+        return "sm90"
+    return "mma"
+
+
+def band_heads(bsz: int, nc: int, nh: int, g: int, Q: int) -> int:
+    """The heads of a group that one backward job of the ``sm90`` route
+    walks, summing dB and dC over them in one accumulator: the largest
+    divisor of ``nh // g`` up to 8 that still leaves 4 jobs an SM of the
+    card (dC takes two a block, dx / dB one); 1 where none does."""
+    hpg = nh // g
+    jobs = bsz * nc * g * (Q // SM90_TILE)
+    best = 1
+    for d in range(1, min(8, hpg) + 1):
+        if hpg % d == 0 and jobs * (hpg // d) >= 4 * _SMS:
+            best = d
+    return best
 
 
 def chunk_len(seq: int, chunk: int) -> int:
@@ -263,10 +314,34 @@ def _check(x, dt, A, B, C, chunk: int) -> int:
     return Q
 
 
-def build_library():
-    """Compile ``SOURCE`` (if not built yet); return the shared library's
-    path."""
-    return nvcc.build_library(SOURCE)
+def build_library(source=SOURCE):
+    """Compile ``source`` (the ``mma`` route's by default; if not built
+    yet); return the shared library's path."""
+    return nvcc.build_library(source)
+
+
+def load_sm90(path) -> ctypes.CDLL:
+    """The ``sm90`` route's shared library at ``path`` (built from
+    ``SOURCE_SM90`` or a variant of it), its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.ssd_sm90_fwd.argtypes = (
+        [c_ptr] * 10 + [strides] + [c_int] * 8 + [c_ptr])
+    lib.ssd_sm90_fwd.restype = c_int
+    lib.ssd_sm90_bwd.argtypes = (
+        [c_ptr] * 23 + [strides] + [c_int] * 8 + [c_ptr])
+    lib.ssd_sm90_bwd.restype = c_int
+    lib.ssd_sm90_error_string.argtypes = [c_int]
+    lib.ssd_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _sm90_library() -> ctypes.CDLL:
+    global _SM90_LIB
+    if _SM90_LIB is None:
+        _SM90_LIB = load_sm90(build_library(SOURCE_SM90))
+    return _SM90_LIB
 
 
 def _library() -> ctypes.CDLL:
@@ -304,49 +379,125 @@ def _on_card(*ts) -> int:
     return ts[0].get_device()
 
 
-def _launch(fn, args, index: int, what: str) -> None:
+def _launch(lib, rt: str, args, index: int, what: str) -> None:
+    """Calls the ``rt`` route's ``what`` entry point of ``lib``; raises
+    with the library's message on a nonzero return."""
+    prefix = "ssd_sm90" if rt == "sm90" else "ssd_chunk_scan"
+    fn = getattr(lib, f"{prefix}_{what}")
     if index == torch.cuda.current_device():
         err = fn(*args)
     else:
         with torch.cuda.device(index):
             err = fn(*args)
     if err:
-        msg = _library().ssd_chunk_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_chunk_scan_{what} failed: {msg}")
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"ssd_chunk_scan_{what} ({rt} route) failed: "
+                           f"{msg}")
 
 
-def ssd_chunk_scan_fwd_cuda(x, dt, A, B, C, chunk: int, plant: int = 0):
-    """The forward's three launches on CUDA tensors: ``(y, cum, state)``,
-    y (b, S, nh, hp) contiguous in x's dtype, cum (b, nc, nh, Q) and
-    state (b, nc, nh, N, hp) fp32 (the state entering each chunk), which
-    the backward reads.  ``plant``: 0, or the smoke check's planted
-    faults (``PLANT_STATE``, ``PLANT_DIAG``)."""
+def _route(x, Q: int, n: int, hp: int, chosen: Optional[str]) -> str:
+    """The planned route, or ``chosen`` where it takes the call (the
+    ``mma`` route takes every shape the planner does; ``sm90`` only what
+    it plans there)."""
+    planned = route(x.dtype, Q, n, hp)
+    if chosen is None:
+        return planned
+    if chosen not in ROUTES:
+        raise ValueError(f"route {chosen!r} is not one of {ROUTES}")
+    if chosen == "sm90" and planned != "sm90":
+        raise ValueError(f"the sm90 route takes no {x.dtype} call at Q {Q}, "
+                         f"N {n}, hp {hp}")
+    return chosen
+
+
+def _count(rt: str, which: int, what: str) -> None:
+    launches = ROUTE_LAUNCHES[rt][which]
+    ssd_chunk_scan_cuda.launches += launches
+    launches_by_route[rt] += launches
+    launches_by_pass[what] += 1
+
+
+def scratch_shapes(rt: str, which: str, bsz: int, S: int, nh: int,
+                   hp: int, g: int, n: int, Q: int) -> Dict[str, tuple]:
+    """The scratch a call allocates: name -> (shape, dtype), in the order
+    the route's entry point takes the pointers.  ``which``: ``"fwd"`` or
+    ``"bwd"``.  The ``sm90`` route's: bf16 copies of the states (``hbf``,
+    ``dbf``), C B^T (and its transpose, ``cbt``) of each (b, c, group), and
+    dB's and dC's sums over each band of :func:`band_heads` heads (fp32);
+    the ``mma`` route's: dB and dC per head (fp32)."""
+    nc = S // Q
+    f32, bf = torch.float32, torch.bfloat16
+    st = (bsz, nc, nh, n, hp)
+    if which == "fwd":
+        return ({"hbf": (st, bf), "cb": ((bsz, nc, g, Q, Q), bf)}
+                if rt == "sm90" else {})
+    # the reverse state pass's partials of <D_c, H_c>: a slice's each on
+    # mma, a warp's (128 elements) each on sm90
+    parts = n * hp // _SM90_PART if rt == "sm90" else -(-n * hp // _SLICE)
+    out = {"dstate": (st, f32), "dcl": ((bsz, nc, nh, parts), f32),
+           "rows": ((4, bsz, nc, nh, Q), f32)}
+    if rt == "sm90":
+        nb = nh // g // band_heads(bsz, nc, nh, g, Q)
+        out.update({"hbf": (st, bf), "dbf": (st, bf),
+                    "cb": ((bsz, nc, g, Q, Q), bf),
+                    "cbt": ((bsz, nc, g, Q, Q), bf),
+                    "dbs": ((bsz, S, g, nb, n), f32),
+                    "dcs": ((bsz, S, g, nb, n), f32)})
+    else:
+        out.update({"dbp": ((bsz, S, nh, n), f32),
+                    "dcp": ((bsz, S, nh, n), f32)})
+    out["dap"] = ((bsz, nc, nh), f32)
+    return out
+
+
+def _scratch(rt: str, which: str, x, g: int, n: int, Q: int) -> list:
+    return [torch.empty(shape, dtype=dtype, device=x.device)
+            for shape, dtype in scratch_shapes(rt, which, *x.shape, g, n,
+                                               Q).values()]
+
+
+def ssd_chunk_scan_fwd_cuda(x, dt, A, B, C, chunk: int, plant: int = 0,
+                            route: Optional[str] = None):
+    """The forward on CUDA tensors (four launches on the ``sm90`` route,
+    three on ``mma``): ``(y, cum, state)``, y (b, S, nh, hp) contiguous in
+    x's dtype, cum (b, nc, nh, Q) and state (b, nc, nh, N, hp) fp32 (the
+    state entering each chunk), which the backward reads.  ``plant``: 0,
+    or the smoke check's planted faults (``PLANT_STATE``,
+    ``PLANT_DIAG``).  ``route``: the planned one (:func:`route`) when
+    ``None``; ``"mma"`` runs a bf16 call on the ``mma.sync`` kernel (a
+    yardstick)."""
     Q = _check(x, dt, A, B, C, chunk)
     index = _on_card(x, dt, A, B, C)
     bsz, S, nh, hp = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = S // Q
-    y = torch.empty((bsz, S, nh, hp), dtype=x.dtype, device=x.device)
-    cum = torch.empty((bsz, nc, nh, Q), dtype=torch.float32, device=x.device)
+    rt = _route(x, Q, n, hp, route)
+    dev = x.device
+    y = torch.empty((bsz, S, nh, hp), dtype=x.dtype, device=dev)
+    cum = torch.empty((bsz, nc, nh, Q), dtype=torch.float32, device=dev)
     state = torch.empty((bsz, nc, nh, n, hp), dtype=torch.float32,
-                        device=x.device)
-    lib = _LIB or _library()
-    _launch(lib.ssd_chunk_scan_fwd,
-            (_DTYPES[x.dtype], x.data_ptr(), B.data_ptr(), C.data_ptr(),
-             dt.data_ptr(), A.data_ptr(), y.data_ptr(), cum.data_ptr(),
-             state.data_ptr(), _strides(x, B, C), bsz, S, nh, hp, g, n, Q,
-             int(plant), torch._C._cuda_getCurrentRawStream(index)),
-            index, "fwd")
-    ssd_chunk_scan_cuda.launches += FWD_LAUNCHES
-    launches_by_pass["fwd"] += 1
+                        device=dev)
+    ptrs = [t.data_ptr() for t in (x, B, C, dt, A, y, cum, state,
+                                   *_scratch(rt, "fwd", x, g, n, Q))]
+    dims = (_strides(x, B, C), bsz, S, nh, hp, g, n, Q, int(plant),
+            torch._C._cuda_getCurrentRawStream(index))
+    if rt == "sm90":
+        lib = _SM90_LIB or _sm90_library()
+        _launch(lib, rt, (*ptrs, *dims), index, "fwd")
+    else:
+        lib = _LIB or _library()
+        _launch(lib, rt, (_DTYPES[x.dtype], *ptrs, *dims), index, "fwd")
+    _count(rt, 0, "fwd")
     return y, cum, state
 
 
-def ssd_chunk_scan_bwd_cuda(dy, x, dt, A, B, C, cum, state, chunk: int):
-    """The backward's six launches on CUDA tensors: ``(dx, ddt, dA, dB,
-    dC)`` (dx, dB, dC contiguous in the inputs' dtype; ddt, dA fp32) from
-    :func:`ssd_chunk_scan_fwd_cuda`'s ``cum`` and ``state`` and y's
-    gradient ``dy`` (strided like x)."""
+def ssd_chunk_scan_bwd_cuda(dy, x, dt, A, B, C, cum, state, chunk: int,
+                            route: Optional[str] = None):
+    """The backward on CUDA tensors (seven launches on the ``sm90`` route,
+    six on ``mma``): ``(dx, ddt, dA, dB, dC)`` (dx, dB, dC contiguous in
+    the inputs' dtype; ddt, dA fp32) from :func:`ssd_chunk_scan_fwd_cuda`'s
+    ``cum`` and ``state`` and y's gradient ``dy`` (strided like x), on
+    ``route`` (the planned one when ``None``)."""
     Q = _check(x, dt, A, B, C, chunk)
     index = _on_card(dy, x, dt, A, B, C, cum, state)
     bsz, S, nh, hp = x.shape
@@ -361,36 +512,35 @@ def ssd_chunk_scan_bwd_cuda(dy, x, dt, A, B, C, cum, state, chunk: int):
                          f"cum {tuple(cum.shape)}, state "
                          f"{tuple(state.shape)} do not fit x "
                          f"{tuple(x.shape)}")
+    rt = _route(x, Q, n, hp, route)
     dev, f32 = x.device, torch.float32
-    dstate = torch.empty_like(state)
-    dcl = torch.empty((bsz, nc, nh, -(-n * hp // _SLICE)), dtype=f32,
-                      device=dev)
-    rows = torch.empty((4, bsz, nc, nh, Q), dtype=f32, device=dev)
-    dbp = torch.empty((bsz, S, nh, n), dtype=f32, device=dev)
-    dcp = torch.empty((bsz, S, nh, n), dtype=f32, device=dev)
-    dap = torch.empty((bsz, nc, nh), dtype=f32, device=dev)
     dx = torch.empty((bsz, S, nh, hp), dtype=x.dtype, device=dev)
     ddt = torch.empty((bsz, S, nh), dtype=f32, device=dev)
     dA = torch.empty((nh,), dtype=f32, device=dev)
     dB = torch.empty((bsz, S, g, n), dtype=B.dtype, device=dev)
     dC = torch.empty((bsz, S, g, n), dtype=C.dtype, device=dev)
-    lib = _LIB or _library()
-    ptrs = [t.data_ptr() for t in (x, B, C, dt, A, dy, cum, state, dstate,
-                                   dcl, rows, dbp, dcp, dap, dx, ddt, dA, dB,
-                                   dC)]
-    _launch(lib.ssd_chunk_scan_bwd,
-            (_DTYPES[x.dtype], *ptrs, _strides(x, B, C, dy), bsz, S, nh, hp,
-             g, n, Q, torch._C._cuda_getCurrentRawStream(index)),
-            index, "bwd")
-    ssd_chunk_scan_cuda.launches += BWD_LAUNCHES
-    launches_by_pass["bwd"] += 1
+    ptrs = [t.data_ptr() for t in (x, B, C, dt, A, dy, cum, state,
+                                   *_scratch(rt, "bwd", x, g, n, Q), dx, ddt,
+                                   dA, dB, dC)]
+    dims = (_strides(x, B, C, dy), bsz, S, nh, hp, g, n, Q)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if rt == "sm90":
+        lib = _SM90_LIB or _sm90_library()
+        _launch(lib, rt, (*ptrs, *dims, band_heads(bsz, nc, nh, g, Q), stream),
+                index, "bwd")
+    else:
+        lib = _LIB or _library()
+        _launch(lib, rt, (_DTYPES[x.dtype], *ptrs, *dims, stream), index,
+                "bwd")
+    _count(rt, 1, "bwd")
     return dx, ddt, dA, dB, dC
 
 
 class SSDChunkScan(torch.autograd.Function):
-    """The kernel with its backward: three forward launches, saving x,
+    """The kernel with its backward, both on the route :func:`route`
+    plans for the call (the entry points plan it): the forward saves x,
     dt, A, B, C, the in-chunk cumsum and the state entering each chunk
-    (fp32); six backward launches."""
+    (fp32)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -417,17 +567,20 @@ def ssd_chunk_scan_cuda(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     return SSDChunkScan.apply(x, dt, A, B, C, chunk)
 
 
-# kernel launches since the last reset (a forward three, a backward six;
-# CPU calls excluded); calls by pass in launches_by_pass
+# kernel launches since the last reset (ROUTE_LAUNCHES a call; CPU calls
+# excluded); calls by pass in launches_by_pass, launches by route in
+# launches_by_route
 ssd_chunk_scan_cuda.launches = 0
 
 
 def reset_launches() -> None:
-    """Set :attr:`ssd_chunk_scan_cuda.launches` and each pass's count to
-    0."""
+    """Set :attr:`ssd_chunk_scan_cuda.launches`, each pass's count and
+    each route's to 0."""
     ssd_chunk_scan_cuda.launches = 0
     for k in launches_by_pass:
         launches_by_pass[k] = 0
+    for k in launches_by_route:
+        launches_by_route[k] = 0
 
 
 def ssd_chunk_scan(x, dt, A, B, C, chunk: int) -> torch.Tensor:
