@@ -13,8 +13,10 @@ script exits non-zero):
    started together) while
    Triton
    compiles the SSD step's variants phase 10 launches
-   (:func:`build_triton_kernels`) and the training kernels' first
-   variants (:func:`build_train_kernels`), timed as set-up;
+   (:func:`build_triton_kernels`), the training kernels' first
+   variants (:func:`build_train_kernels`) and the conv front's and the
+   gated norm's at mamba2-780m's widths (:func:`build_front_kernels`),
+   timed as set-up;
 2. hold the kernel (``cim_mvm`` on CUDA tensors) against its plain
    PyTorch version ``bitserial_mvm_ref``, bit-exact (tolerance 0): the
    CPU tests' shapes (K not a multiple of 16 among them) under
@@ -308,7 +310,32 @@ script exits non-zero):
    their paths and assert them, every launch on the route planned for
    their compute dtype (``ssd_routes_check``).  11c's mamba2-780m also
    traces one step with the host's ops and their input shapes
-   (:func:`op_profile`).
+   (:func:`op_profile`): no ``aten::mul`` of the conv's taps may be
+   among them.
+
+16. Mamba-2's causal conv front and gated output norm
+   (:func:`front_phase`), run before phase 10: both Triton kernels
+   (``kernels/causal_conv.py``, ``kernels/gated_norm.py``), forward and
+   backward, at ``SSM_FRONT_CASES`` (mamba2-780m at B 4 x S 2048 and
+   B 1 x S 32768, jamba-1.5's geometry at B 1 x S 4096, S 1 and S 3
+   inside the conv's halo, the reduced widths in fp32; the conv's input
+   and z views of one in_proj row, x of one conv row): each output within
+   ``CONV_TOL_F32`` / ``GATE_TOL_F32`` of the plain version on fp32
+   upcasts and ``*_TOL_REF`` of it in the reference's dtypes, every
+   gradient within ``*_TOL_GRAD`` of autograd of the fp32 plain version
+   and ``*_TOL_GRAD_PLAIN`` of the backward's algorithm
+   (``causal_conv_silu_bwd_ref``, ``gated_norm_bwd_ref``); planted faults
+   refused (the conv's oldest tap
+   dropped at S >= K; the gate's D skip dropped, and its eps dropped on
+   inputs scaled by ``GATE_EPS_SCALE``); both forward and backward
+   captured in one CUDA graph, replays equal to eager calls bit for bit;
+   each kernel's forward and forward + backward timed by graph replay
+   beside its bound (:func:`front_bound`), the plain version (the card's
+   path before the kernels, under autograd) and the library yardstick (a
+   depth-wise ``F.conv1d`` + ``F.silu`` for the conv; none for the gate,
+   ``F.rms_norm`` on its product logged beside it).  11b, 11c, 13b' and
+   13c count both kernels' calls on their paths and assert them
+   (:func:`front_calls_check`).
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
@@ -316,7 +343,8 @@ bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
 grouped GEMM's 10c's, 11c's and 13b's, the flash attention's 11c's,
 13a's and 13c's (a forward one launch, a backward three), the SSD chunk
 scan's 11c's, 13b''s and 13c's (on the sm90 route a forward four, a
-backward seven; on mma three and six).  Each
+backward seven; on mma three and six), the conv front's and the gated
+norm's 11c's, 13b''s and 13c's (a forward one, a backward two).  Each
 record's times are device times
 (CUDA-graph replay): the bit-serial kernel summed over the 55 MVMs of
 phase 3; ``int8_matmul`` summed over ``QL_SHAPES`` with the weight read
@@ -332,7 +360,9 @@ at olmoe's training buffer (up projection; ``previous_ms``: the same on
 the tile route, ``grouped_gemm.cu``; ``decode_*``: the forward at its
 decode buffer); the flash attention's forward and backward at phi4-mini's
 11c shape (``fwd_*``: the forward alone); the SSD chunk scan's forward
-and backward at mamba2-780m's 11c shape (``fwd_*``: the forward alone).
+and backward at mamba2-780m's 11c shape (``fwd_*``: the forward alone);
+the conv front's and the gated norm's forward and backward at the same
+shape (``fwd_*``: the forward alone).
 The
 second-to-last line is the ``{"kernels": [...]}`` JSON record and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -761,6 +791,65 @@ SSD_GRAPH_REPS = 4
 # forward + backward at least SSD_REDESIGN_GAIN times faster than the mma
 # route's in the same call
 SSD_REDESIGN_GAIN = 2.0
+# phase 16: Mamba-2's causal conv front and gated output norm
+# (kernels/causal_conv.py, kernels/gated_norm.py) against their plain
+# versions: (label, B, S, nh, hp, g, N, dtype).  mamba2-780m (d_in 3072,
+# conv_dim 3328, 48 heads of 64) at 11c's shape and at prefill_32k's
+# sequence, jamba-1.5's geometry (d_in 16384: four blocks of 32 heads of
+# 128 a row; conv_dim 18432, g 8), S 1 and S 3 (inside the conv's K - 1 =
+# 3 rows of halo), the reduced configs' widths (d_in 128, conv_dim 160, 8
+# heads of 16) in fp32.  The conv reads its columns of one in_proj row
+# and the gate z there, x from one conv row: as the layer hands them
+SSM_FRONT_CASES = [
+    ("mamba2 B4 S2048", 4, 2048, 48, 64, 1, 128, "bfloat16"),
+    ("mamba2 B1 S32768", 1, 32768, 48, 64, 1, 128, "bfloat16"),
+    ("jamba B1 S4096", 1, 4096, 128, 128, 8, 128, "bfloat16"),
+    ("mamba2 B4 S1", 4, 1, 48, 64, 1, 128, "bfloat16"),
+    ("mamba2 B2 S3", 2, 3, 48, 64, 1, 128, "bfloat16"),
+    ("reduced fp32 B2 S64", 2, 64, 8, 16, 1, 16, "float32"),
+]
+# the kernels line's case: mamba2-780m at 11c's shape
+SSM_FRONT_MAIN = "mamba2 B4 S2048"
+# kernel vs plain, |err| <= tol[0] * rms(plain) + tol[1] * |plain|, by
+# dtype.  *_F32 holds the output to the plain version on fp32 upcasts of
+# the same inputs, *_REF to it in the reference's dtypes (the card's path
+# before the kernels), *_GRAD every gradient to autograd of the fp32 plain
+# version and *_TOL_GRAD_PLAIN to the backward's algorithm
+# (causal_conv_silu_bwd_ref, gated_norm_bwd_ref: fp32 on the same inputs,
+# rounded to the same dtypes: a value the two round from nearly the same
+# fp32 number may land an ulp apart, 2^-7).  The conv sums in fp32 and
+# rounds once, its gradients too: half an ulp, 2^-9 of a value.  At bf16 the reference rounds every tap and partial sum (a model
+# of the kernel, the fp32 plain version rounded once, needs an rms share
+# of 0.025 against it at 2^-6 on the CPU); the gate rounds x * D, the
+# sum, silu(z) and g as the reference does, which parts it from the fp32
+# plain version near cancellation (x * D and the sum rounded alone needed
+# 0.054 at 2^-7 on the CPU, its gradients 0.033).  The shares are about 4x
+# those.  The gate without the skip (decode's) is held to the same.  The
+# conv's
+# planted fault (its oldest tap dropped, at S >= K) and the gate's (the D
+# skip dropped; eps dropped on GATE_EPS_SCALE inputs) must fail *_F32.
+CONV_TOL_F32 = {"bfloat16": (0.01, 2.0 ** -8), "float32": (1e-5, 1e-5)}
+CONV_TOL_REF = {"bfloat16": (0.1, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+CONV_TOL_GRAD = {"bfloat16": (0.01, 2.0 ** -8), "float32": (1e-5, 1e-5)}
+CONV_TOL_GRAD_PLAIN = {"bfloat16": (0.01, 2.0 ** -7),
+                       "float32": (1e-5, 1e-5)}
+GATE_TOL_F32 = {"bfloat16": (0.2, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+GATE_TOL_REF = {"bfloat16": (0.1, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+GATE_TOL_GRAD = {"bfloat16": (0.15, 2.0 ** -7), "float32": (1e-5, 1e-5)}
+GATE_TOL_GRAD_PLAIN = {"bfloat16": (0.02, 2.0 ** -7),
+                       "float32": (1e-5, 1e-5)}
+# the gate's eps fault runs on the main case's y, x and z scaled by this
+# power of two (exact), where mean(g^2) falls far below eps
+GATE_EPS_SCALE = 2.0 ** -6
+# calls a CUDA graph holds in phase 16's timings; issued runs of the
+# library calls
+FRONT_GRAPH_REPS = 4
+FRONT_LIB_REPS = 5
+# fp32 operations an element of the conv (K = 4) and the gate, forward and
+# backward (the algorithm's: pre once, its taps, SiLU and its derivative,
+# dx, dw, db; the skip, SiLU, the squares, the norm and its gradient)
+CONV_OPS = (13, 34)
+GATE_OPS = (11, 30)
 
 def log(*a):
     print(*a, flush=True)
@@ -2039,6 +2128,39 @@ def build_train_kernels(device) -> float:
     return time.perf_counter() - t0
 
 
+def build_front_kernels(device) -> float:
+    """Compile the conv front's and the gated norm's Triton variants that
+    mamba2-780m's bf16 paths launch (the conv forward and backward, the
+    gate forward with and without the D skip and its backward, the sums of
+    their partials) by launches on zero inputs of its widths, with the
+    strides' and sizes' divisibility of the main paths: the seconds
+    taken."""
+    import torch
+    from repro_torch.kernels import causal_conv as CC, gated_norm as GN
+    t0 = time.perf_counter()
+    _, b, s, nh, hp, g, n, dt_name = next(c for c in SSM_FRONT_CASES
+                                          if c[0] == SSM_FRONT_MAIN)
+    d, c = nh * hp, nh * hp + 2 * g * n
+    bf = getattr(torch, dt_name)
+
+    def zeros(*shape, dtype=bf):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    row = zeros(1, 16, 2 * d + 2 * g * n + nh)
+    x, w, bias = row[..., d:d + c], zeros(4, c), zeros(c)
+    CC.causal_conv_silu_fwd_cuda(x, w, bias)
+    CC.causal_conv_silu_bwd_cuda(zeros(1, 16, c), x, w, bias)
+    y, z, nw, D = zeros(1, 16, d), row[..., :d], zeros(d), zeros(nh)
+    gx = zeros(1, 16, c)[..., :d]
+    GN.gated_norm_fwd_cuda(y, z, nw, nh, gx, D)
+    # decode's gate: B rows of S 1, no skip
+    GN.gated_norm_fwd_cuda(zeros(b, 1, d), zeros(b, 1, row.shape[-1])[..., :d],
+                           nw, nh)
+    GN.gated_norm_bwd_cuda(zeros(1, 16, d), y, z, nw, nh, gx, D)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def dev_ms(fn, device) -> float:
     """Device ms of ``fn()`` on CUDA (:func:`graph_ms`); on the CPU (a
     rehearsal only) the host's mean ms over ``REPS`` runs."""
@@ -3205,6 +3327,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
         t0 = time.perf_counter()
         FA.reset_launches()
         SS.reset_launches()
+        front_reset()
         with meshctx.use_mesh(mesh, data_axes=("data",)):
             tree, _, m = fn(tree, adamw_init(tree, hp), batch, 1)
         if label == "card":
@@ -3212,6 +3335,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
             flash_routes = dict(FA.launches_by_route)
             ssd = dict(SS.launches_by_pass)
             ssd_routes = dict(SS.launches_by_route)
+            front = front_calls_read()
         out[label] = (tree_util.leaves(tree),
                       {k: float(v) for k, v in m.items()},
                       time.perf_counter() - t0)
@@ -3235,7 +3359,8 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
            "update_gap_over_reach": worst, "far_share": far / total,
            "card_s": t_dev, "cpu_s": t_cpu, "flash_launches": flash,
            "flash_routes": flash_routes, "ssd_launches": ssd,
-           "ssd_routes": ssd_routes, "wall_s": time.perf_counter() - t_start}
+           "ssd_routes": ssd_routes, "front_calls": front,
+           "wall_s": time.perf_counter() - t_start}
     # the flash-attention kernel and the SSD chunk scan: a forward an
     # attention (SSM) layer, again in the block's recompute under remat,
     # and a backward
@@ -3249,6 +3374,7 @@ def train_model_phase(name: str, device, layers: int = TRAIN_MODEL_LAYERS,
         raise AssertionError(f"{name} train step, card against CPU: {row}")
     fa_routes_check(f"{name} train step", flash_routes, cfg.compute_dtype)
     ssd_routes_check(f"{name} train step", ssd_routes, ssd, cfg, seq)
+    front_calls_check(f"{name} train step", front, 2 * n_ssm, n_ssm)
     return row
 
 
@@ -3332,6 +3458,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
     GG.reset_launches()
     FA.reset_launches()
     SS.reset_launches()
+    front_reset()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3349,6 +3476,7 @@ def train_loop(cfg, device, steps: int, batch: int, seq: int,
            "ssm_layers": ssm_layers(cfg),
            "ssd_launches": dict(SS.launches_by_pass),
            "ssd_routes": dict(SS.launches_by_route),
+           "front_calls": front_calls_read(),
            "compute_dtype": cfg.compute_dtype,
            "xent_launches": launches[0], "norm_launches": launches[1],
            "update_launches": launches[2],
@@ -3379,7 +3507,8 @@ def check_training(label: str, row: dict) -> None:
     backward), every one on ``grouped_gemm_sm90.cu`` (bf16), 2
     flash-attention forwards (one in the recompute) and a backward an
     attention layer a step, and 2 SSD chunk-scan forwards and a backward
-    an SSM layer a step."""
+    an SSM layer a step, as many of the conv front and of the gated
+    norm."""
     import math
     losses, steps = row["losses"], row["steps"]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
@@ -3406,6 +3535,7 @@ def check_training(label: str, row: dict) -> None:
         raise AssertionError(f"{label}: SSD chunk-scan calls "
                              f"{row['ssd_launches']}, expected {2 * n} "
                              f"forwards and {n} backwards")
+    front_calls_check(label, row["front_calls"], 2 * n, n)
 
 
 def train_full_phase(device, seed: int = 0) -> list:
@@ -3441,6 +3571,7 @@ def train_full_phase(device, seed: int = 0) -> list:
             GG.reset_launches()
             FA.reset_launches()
             SS.reset_launches()
+            front_reset()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lm_train.main(argv)
@@ -3466,6 +3597,7 @@ def train_full_phase(device, seed: int = 0) -> list:
                    "ssm_layers": ssm_layers(cfg),
                    "ssd_launches": dict(SS.launches_by_pass),
                    "ssd_routes": dict(SS.launches_by_route),
+                   "front_calls": front_calls_read(),
                    "compute_dtype": cfg.compute_dtype,
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             traced = train_loop(cfg, dev, 2, TRAIN_FULL_BATCH,
@@ -3477,6 +3609,13 @@ def train_full_phase(device, seed: int = 0) -> list:
                 row[k] = traced[k]
             for line in (lines[0], lines[-2], lines[-1]):
                 log(f"  {line}")
+            taps = str([[row["batch"], row["seq"], ssm_conv_dim(cfg)],
+                        [ssm_conv_dim(cfg)]])
+            conv_taps = [r for r in row["top_ops_by_shape"]
+                         if r[2] == "aten::mul" and r[3] == taps]
+            if conv_taps:
+                raise AssertionError(f"{name}: the conv's taps still run as "
+                                     f"tensor ops: {conv_taps}")
         else:
             row = train_loop(cfg, dev, TRAIN_FULL_STEPS, TRAIN_FULL_BATCH,
                              TRAIN_FULL_SEQ, TRAIN_TRACE_STEPS, seed)
@@ -3499,7 +3638,8 @@ def train_full_phase(device, seed: int = 0) -> list:
             f"GEMM {row['grouped_gemm_launches']} (by route "
             f"{row['grouped_gemm_routes']}), flash attention "
             f"{row['flash_launches']}, SSD chunk scan "
-            f"{row['ssd_launches']} (launches by route {row['ssd_routes']}); "
+            f"{row['ssd_launches']} (launches by route {row['ssd_routes']}), "
+            f"conv front / gated norm {row['front_calls']}; "
             f"{row['traced_steps']} traced steps: device busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%; the trace took "
             f"{row['trace_s']:.1f} s); {row['wall_s']:.1f} s in all")
@@ -4291,9 +4431,11 @@ def prefill_ssm_phase(device, seed: int = 0) -> dict:
         cfg, b, s, seed=seed, step=0)["tokens"]).to(dev)}
     with meshctx.use_mesh(local_mesh(), data_axes=("data",)):
         SS.reset_launches()
+        front_reset()
         logits, ms, peak = prefill_timed(fn, params, batch, reps, True, dev)
         ssd = dict(SS.launches_by_pass)
         ssd_routes = dict(SS.launches_by_route)
+        front = front_calls_read()
         wall, busy, top = device_profile(lambda: fn(params, batch),
                                          cpu=False)
     want = (reps + 1) * ssm_layers(cfg)
@@ -4301,6 +4443,7 @@ def prefill_ssm_phase(device, seed: int = 0) -> dict:
         raise AssertionError(f"{name} prefill: SSD chunk-scan calls {ssd}, "
                              f"expected {want} forwards")
     ssd_routes_check(f"{name} prefill", ssd_routes, ssd, cfg, s)
+    front_calls_check(f"{name} prefill", front, want, 0)
     if tuple(logits.shape) != (b, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill: logits "
@@ -4310,7 +4453,7 @@ def prefill_ssm_phase(device, seed: int = 0) -> dict:
     row = {"arch": name, "layers": cfg.n_layers, "batch": b, "seq": s,
            "calls_ms": ms, "median_ms": med, "tok_s": b * s / (med / 1e3),
            "peak_gb": peak, "ssd_launches": ssd, "ssd_routes": ssd_routes,
-           "profiled_wall_ms": wall,
+           "front_calls": front, "profiled_wall_ms": wall,
            "device_busy_ms": busy, "top_device_events": top,
            "wall_s": time.perf_counter() - t_start}
     del params, logits, batch
@@ -4362,12 +4505,14 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         fn_card, _ = lm_steps.make_prefill_step(cfg, dev, shape)
         FA.reset_launches()
         SS.reset_launches()
+        front_reset()
         with routing_recorded(r_card):
             card = fn_card(cast, {"tokens": tokens.to(dev)}).cpu()
         flash = dict(FA.launches_by_pass)
         flash_routes = dict(FA.launches_by_route)
         ssd = dict(SS.launches_by_pass)
         ssd_routes = dict(SS.launches_by_route)
+        front = front_calls_read()
         want = attention_layers(cfg) if dev.type == "cuda" else 0
         if flash != {"fwd": want, "bwd": 0}:
             raise AssertionError(f"{name} prefill: flash-attention calls "
@@ -4378,6 +4523,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
                                  f"{ssd}, expected {want} forwards")
         fa_routes_check(f"{name} prefill", flash_routes, cfg.compute_dtype)
         ssd_routes_check(f"{name} prefill", ssd_routes, ssd, cfg, s)
+        front_calls_check(f"{name} prefill", front, want, 0)
         fn_cpu, _ = lm_steps.make_prefill_step(cfg, "cpu", shape)
         with routing_recorded(r_cpu):
             host = fn_cpu(cpu, {"tokens": tokens})
@@ -4415,7 +4561,8 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     out = {"arch": name, "layers": layers, "batch": b, "seq": s,
            "compute_dtype": cfg.compute_dtype, "flash_launches": flash,
            "flash_routes": flash_routes, "ssd_launches": ssd,
-           "ssd_routes": ssd_routes, "decode_held": hold_decode}
+           "ssd_routes": ssd_routes, "front_calls": front,
+           "decode_held": hold_decode}
     if not hold_decode:
         out["cpu_own_decode_gap_over_range"] = float(
             (host - own).abs().max()) / float(own.abs().max())
@@ -5031,6 +5178,13 @@ def ssm_layers(cfg) -> int:
     return cfg.n_blocks * cfg.block_pattern.count("M")
 
 
+def ssm_conv_dim(cfg) -> int:
+    """The channels of ``cfg``'s Mamba-2 conv front: ``concat([x, B,
+    C])``'s width."""
+    s = cfg.ssm
+    return s.expand * cfg.d_model + 2 * s.n_groups * s.d_state
+
+
 def ssd_bound(case) -> dict:
     """``{"fwd" | "fwd_bwd": (bound ms, "operations" | "bytes", FLOPs)}``
     of a phase 15 case, with T = Q (Q + 1) / 2 the causal pairs of a
@@ -5332,6 +5486,445 @@ def ssd_phase(device, seed: int = 0, cases=SSD_SCAN_CASES) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the conv front and the gated norm
+# ---------------------------------------------------------------------------
+
+
+def front_bound(case) -> dict:
+    """``{(kernel, pass): (bound ms, "operations" | "bytes")}`` of a phase
+    16 case for the conv and the gate, forward (``fwd``) and forward +
+    backward (``fwd_bwd``).  Bytes: the conv reads x and writes its
+    output, then reads dy and x and writes dx (5 (B, S, C) passes; w, b,
+    dw, db too); the gate reads y, x, z and writes the output, then reads
+    dout, y, x, z and writes dy, dx, dz (11 (B, S, d) passes; w, D and
+    their gradients too); against ``CONV_OPS`` / ``GATE_OPS`` fp32
+    operations an element at the fp32 peak."""
+    _, b, S, nh, hp, g, n, dt = case
+    elem = 2 if dt == "bfloat16" else 4
+    d = nh * hp
+    c = d + 2 * g * n
+    out = {}
+    for name, width, ops, (f_pass, b_pass), small in (
+            ("conv", c, CONV_OPS, (2, 3), 2 * 5 * c * elem),
+            ("gate", d, GATE_OPS, (4, 7), 2 * (d * elem + nh * 4))):
+        for what, passes, n_ops in (("fwd", f_pass, ops[0]),
+                                    ("fwd_bwd", f_pass + b_pass, sum(ops))):
+            t_b = (elem * passes * b * S * width + small) / PEAK_BYTES
+            t_o = n_ops * b * S * width / PEAK_F32_OPS
+            out[name, what] = (1e3 * max(t_o, t_b),
+                               "operations" if t_o >= t_b else "bytes")
+    return out
+
+
+def front_inputs(case, gen, device) -> dict:
+    """A phase 16 case's operands, normal draws in its dtype: the conv's
+    input and z as views of one ``in_proj`` row, the gate's x of one conv
+    row; w (K, C) at 1/2, its bias at 0.1; y; D (fp32) and the norm's
+    weight near 1; the two outputs' gradients."""
+    import torch
+    _, b, S, nh, hp, g, n, dt_name = case
+    dtype = getattr(torch, dt_name)
+    d = nh * hp
+    c = d + 2 * g * n
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen,
+                                            device=device)).to(dtype)
+
+    row = draw(b, S, 2 * d + 2 * g * n + nh)
+    return {"x": row[..., d:d + c], "w": draw(4, c, scale=0.5),
+            "b": draw(c, scale=0.1), "dy": draw(b, S, c),
+            "y": draw(b, S, d), "z": row[..., :d],
+            "gx": draw(b, S, c)[..., :d], "heads": nh,
+            "D": draw(nh, scale=0.3, shift=1.0).float(),
+            "nw": draw(d, scale=0.2, shift=1.0), "dout": draw(b, S, d)}
+
+
+def front_calls(card: bool):
+    """``(conv fwd, conv bwd, gate fwd, gate bwd)``: the kernels' entry
+    points on the card; on the CPU (a rehearsal) models of their
+    arithmetic in their place (the conv's plain version in fp32 rounded
+    once, the gate's plain version, which rounds where the kernel does;
+    the backwards' algorithms; no fault planted)."""
+    from repro_torch.kernels import causal_conv as CC, gated_norm as GN
+    if card:
+        return (CC.causal_conv_silu_fwd_cuda, CC.causal_conv_silu_bwd_cuda,
+                GN.gated_norm_fwd_cuda, GN.gated_norm_bwd_cuda)
+
+    def conv_fwd(x, w, b, plant=0):
+        return CC.causal_conv_silu_ref(x.float(), w.float(),
+                                       b.float()).to(x.dtype)
+
+    def gate_fwd(y, z, w, heads, x=None, D=None, plant=0):
+        return GN.gated_norm_ref(y, z, w, heads, x, D)
+
+    return (conv_fwd, CC.causal_conv_silu_bwd_ref, gate_fwd,
+            GN.gated_norm_bwd_ref)
+
+
+def front_plain(fn, args, grad=None, upcast=False):
+    """``fn(*args)`` (a plain forward; floating tensors as fp32 copies when
+    ``upcast``), and with ``grad`` the gradients of its tensor arguments
+    by autograd: ``(out, [grads])``."""
+    import torch
+    ins = [a.detach().float() if upcast and isinstance(a, torch.Tensor)
+           else a.detach() if isinstance(a, torch.Tensor) else a
+           for a in args]
+    if grad is None:
+        with torch.no_grad():
+            return fn(*ins), None
+    leaves = [a.clone().requires_grad_() if isinstance(a, torch.Tensor)
+              else a for a in ins]
+    out = fn(*leaves)
+    out.backward(grad.float() if upcast else grad)
+    return out.detach(), [a.grad for a in leaves
+                          if isinstance(a, torch.Tensor)]
+
+
+def front_checks(label, kind, dt_name, got, grads, args, grad, plain_fwd,
+                 plain_bwd, tols, names, failures) -> dict:
+    """One kernel's checks of a phase 16 case: the output within
+    ``tols[0]`` of the fp32 plain forward and ``tols[1]`` of the plain one
+    in the reference's dtypes, each gradient within ``tols[2]`` of
+    autograd of the fp32 plain version and ``tols[3]`` of the backward's
+    algorithm; each check's least passing rms share."""
+    o32, g32 = front_plain(plain_fwd, args, grad, upcast=True)
+    oref, _ = front_plain(plain_fwd, args)
+    err, rel, ok32 = scaled_within(got, o32, *tols[0][dt_name])
+    _, rel_ref, ok_ref = scaled_within(got, oref, *tols[1][dt_name])
+    row = {"max_abs_err": err, "err_over_rms": rel,
+           "err_ref_over_rms": rel_ref,
+           "share_needed": needed_share(got, o32, tols[0][dt_name][1]),
+           "share_needed_ref": needed_share(got, oref, tols[1][dt_name][1])}
+    if not (ok32 and ok_ref):
+        failures.append(f"{label} ({kind}): output needs an rms share of "
+                        f"{row['share_needed']:.3g} (fp32 plain), "
+                        f"{row['share_needed_ref']:.3g} (plain, reference "
+                        f"dtypes)")
+    algo = plain_bwd(grad, *args)
+    row["grad_share_needed"], row["grad_share_needed_plain"] = {}, {}
+    for name, g, want, want_p in zip(names, grads, g32, algo):
+        if g is None:
+            continue
+        _, _, g_ok = scaled_within(g, want, *tols[2][dt_name])
+        _, _, p_ok = scaled_within(g, want_p, *tols[3][dt_name])
+        row["grad_share_needed"][name] = needed_share(g, want,
+                                                      tols[2][dt_name][1])
+        row["grad_share_needed_plain"][name] = needed_share(
+            g, want_p, tols[3][dt_name][1])
+        if not (g_ok and p_ok):
+            failures.append(
+                f"{label} ({kind}): {name} needs an rms share of "
+                f"{row['grad_share_needed'][name]:.3g} (fp32 autograd), "
+                f"{row['grad_share_needed_plain'][name]:.3g} (plain "
+                f"backward)")
+    return row
+
+
+def front_fault(label, what, bad, want, tol, failures) -> float:
+    """A planted fault's output ``bad`` must fail ``tol`` against the
+    fp32 plain ``want``: its least passing rms share."""
+    _, _, passes = scaled_within(bad, want, *tol)
+    share = needed_share(bad, want, tol[1])
+    if passes:
+        failures.append(f"{label}: planted fault ({what}) passes, rms "
+                        f"share {share:.3g}")
+    return share
+
+
+def front_library(a, card: bool):
+    """``(forward, forward + backward)`` closures of the conv's library
+    yardstick on the same tensors: a depth-wise ``F.conv1d(groups=C)``
+    over the (B, C, S) view, padded K - 1 and cut to S, then ``F.silu``;
+    the gradient ``dy`` transposed alike."""
+    import torch
+    import torch.nn.functional as F
+    x, w, b = a["x"], a["w"], a["b"]
+    k, c = w.shape
+    S = x.shape[1]
+    xt = x.transpose(1, 2)
+    wt = w.t().unsqueeze(1)
+    dyt = a["dy"].transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (xt, wt, b)]
+
+    def run(xx, ww, bb):
+        return F.silu(F.conv1d(xx, ww, bb, padding=k - 1,
+                               groups=c)[..., :S])
+
+    def fwd():
+        return run(xt, wt, b)
+
+    def fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        run(*leaves).backward(dyt)
+
+    return fwd, fwd_bwd
+
+
+def front_rms_norm(a):
+    """``(forward, forward + backward)`` closures of ``F.rms_norm`` on the
+    gate's product ``(y + x D) silu(z)`` (computed once, outside the
+    timing): one PyTorch call beside the gate, not its function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import gated_norm as GN
+    with torch.no_grad():
+        g = GN._skip(a["y"], a["gx"], a["D"], a["heads"]) \
+            * F.silu(a["z"])
+    d = g.shape[-1]
+    leaves = [t.detach().requires_grad_() for t in (g, a["nw"])]
+
+    def fwd():
+        return F.rms_norm(g, (d,), a["nw"], GN.EPS)
+
+    def fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        F.rms_norm(leaves[0], (d,), leaves[1], GN.EPS).backward(a["dout"])
+
+    return fwd, fwd_bwd
+
+
+def front_graph_check(case, other, gen, device, failures) -> dict:
+    """:func:`graph_replay_check` of ``case``'s conv and gate, forward and
+    backward, in one step; ``other``'s shape called before the last
+    replay."""
+    calls = front_calls(True)
+
+    def fwd_bwd(c):
+        a = front_inputs(c, gen, device)
+
+        def step():
+            return (calls[0](a["x"], a["w"], a["b"]),
+                    *calls[1](a["dy"], a["x"], a["w"], a["b"]),
+                    calls[2](a["y"], a["z"], a["nw"], a["heads"], a["gx"],
+                             a["D"]),
+                    *calls[3](a["dout"], a["y"], a["z"], a["nw"],
+                              a["heads"], a["gx"], a["D"]))
+        return step
+
+    return graph_replay_check(case[0], other[0], fwd_bwd(case),
+                              lambda: fwd_bwd(other)(), failures)
+
+
+def front_phase(device, seed: int = 0, cases=SSM_FRONT_CASES) -> dict:
+    """Phase 16: the conv front's and the gated norm's kernels against
+    their plain versions at ``cases`` (:func:`front_checks`), the planted
+    faults refused, a graph-replay check of both at
+    ``SSM_FRONT_MAIN``; each case's forward and forward + backward timed
+    by CUDA-graph replay beside its bound (:func:`front_bound`), the plain
+    version (the card's path before the kernels: the reference's
+    arithmetic under autograd) and the library yardstick (the conv: a
+    depth-wise ``F.conv1d`` + ``F.silu``; the gate: none, ``F.rms_norm``
+    on its product logged beside it).  Launches made here compare; they
+    are not counted.  On the CPU (a rehearsal) the plain versions stand in
+    for the kernels and no fault is planted."""
+    import torch
+    from repro_torch.kernels import causal_conv as CC, gated_norm as GN
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    conv_fwd, conv_bwd, gate_fwd, gate_bwd = front_calls(card)
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows, failures = [], []
+    t_phase = time.perf_counter()
+    for case in cases:
+        label, b, S, nh, hp, g, n, dt_name = case
+        t0 = time.perf_counter()
+        a = front_inputs(case, gen, dev)
+        conv_args = (a["x"], a["w"], a["b"])
+        gate_args = (a["y"], a["z"], a["nw"], nh, a["gx"], a["D"])
+        t_first = time.perf_counter()
+        out_c = conv_fwd(*conv_args)
+        grads_c = conv_bwd(a["dy"], *conv_args)
+        out_g = gate_fwd(*gate_args)
+        grads_g = gate_bwd(a["dout"], *gate_args)
+        if card:
+            torch.cuda.synchronize()
+        row = {"case": label, "B": b, "S": S, "nh": nh, "hp": hp, "g": g,
+               "N": n, "dtype": dt_name, "d_in": nh * hp,
+               "conv_dim": nh * hp + 2 * g * n,
+               "first_call_s": time.perf_counter() - t_first}
+        row["conv"] = front_checks(
+            label, "conv", dt_name, out_c, grads_c, conv_args, a["dy"],
+            CC.causal_conv_silu_ref, CC.causal_conv_silu_bwd_ref,
+            (CONV_TOL_F32, CONV_TOL_REF, CONV_TOL_GRAD, CONV_TOL_GRAD_PLAIN),
+            ("dx", "dw", "db"), failures)
+        row["gate"] = front_checks(
+            label, "gate", dt_name, out_g, grads_g, gate_args, a["dout"],
+            GN.gated_norm_ref, GN.gated_norm_bwd_ref,
+            (GATE_TOL_F32, GATE_TOL_REF, GATE_TOL_GRAD, GATE_TOL_GRAD_PLAIN),
+            ("dy", "dz", "dw", "dx", "dD"), failures)
+        del grads_c, grads_g
+        # decode's gate: no skip, forward only
+        nos = gate_args[:4]
+        got = gate_fwd(*nos)
+        n32, _ = front_plain(GN.gated_norm_ref, nos, upcast=True)
+        nref, _ = front_plain(GN.gated_norm_ref, nos)
+        _, _, ok32 = scaled_within(got, n32, *GATE_TOL_F32[dt_name])
+        _, _, okr = scaled_within(got, nref, *GATE_TOL_REF[dt_name])
+        row["gate"]["no_skip_share_needed"] = needed_share(
+            got, n32, GATE_TOL_F32[dt_name][1])
+        row["gate"]["no_skip_share_needed_ref"] = needed_share(
+            got, nref, GATE_TOL_REF[dt_name][1])
+        if not (ok32 and okr):
+            failures.append(
+                f"{label} (gate, no skip): output needs an rms share of "
+                f"{row['gate']['no_skip_share_needed']:.3g} (fp32 plain), "
+                f"{row['gate']['no_skip_share_needed_ref']:.3g} (reference "
+                f"dtypes)")
+        del got, n32, nref
+        faults = {}
+        if card:
+            c32, _ = front_plain(CC.causal_conv_silu_ref, conv_args,
+                                 upcast=True)
+            if S >= a["w"].shape[0]:
+                faults["conv oldest tap dropped"] = front_fault(
+                    label, "conv oldest tap dropped",
+                    conv_fwd(*conv_args, plant=CC.PLANT_OLDEST_TAP), c32,
+                    CONV_TOL_F32[dt_name], failures)
+            g32, _ = front_plain(GN.gated_norm_ref, gate_args, upcast=True)
+            faults["gate D skip dropped"] = front_fault(
+                label, "gate D skip dropped",
+                gate_fwd(*gate_args, plant=GN.PLANT_SKIP), g32,
+                GATE_TOL_F32[dt_name], failures)
+            if label == SSM_FRONT_MAIN:
+                small = tuple(t * GATE_EPS_SCALE for t in gate_args[:2]) \
+                    + (a["nw"], nh, a["gx"] * GATE_EPS_SCALE, a["D"])
+                s32, _ = front_plain(GN.gated_norm_ref, small, upcast=True)
+                # the kernel itself passes on these inputs
+                got = gate_fwd(*small)
+                _, _, ok = scaled_within(got, s32, *GATE_TOL_F32[dt_name])
+                row["gate"]["share_needed_scaled"] = needed_share(
+                    got, s32, GATE_TOL_F32[dt_name][1])
+                if not ok:
+                    failures.append(
+                        f"{label}: the gate on inputs scaled by "
+                        f"{GATE_EPS_SCALE} needs an rms share of "
+                        f"{row['gate']['share_needed_scaled']:.3g}")
+                faults["gate eps dropped"] = front_fault(
+                    label, "gate eps dropped",
+                    gate_fwd(*small, plant=GN.PLANT_EPS), s32,
+                    GATE_TOL_F32[dt_name], failures)
+                del small, s32, got
+            del c32, g32
+        row["fault_share_needed"] = faults
+        del out_c, out_g
+        bounds = front_bound(case)
+        lib = front_library(a, card)
+        rms = front_rms_norm(a)
+
+        def conv_both():
+            conv_fwd(*conv_args)
+            conv_bwd(a["dy"], *conv_args)
+
+        def gate_both():
+            gate_fwd(*gate_args)
+            gate_bwd(a["dout"], *gate_args)
+
+        timed = {"conv_fwd_ms": lambda: conv_fwd(*conv_args),
+                 "conv_ms": conv_both,
+                 "gate_fwd_ms": lambda: gate_fwd(*gate_args),
+                 "gate_ms": gate_both}
+        for key, fn in timed.items():
+            row[key] = graph_ms(fn, FRONT_GRAPH_REPS) if card \
+                else dev_ms(fn, dev)
+        for kind, args, fwd_fn, grad in (
+                ("conv", conv_args, CC.causal_conv_silu_ref, a["dy"]),
+                ("gate", gate_args, GN.gated_norm_ref, a["dout"])):
+            row[f"{kind}_plain_fwd_ms"] = once_ms(
+                lambda: front_plain(fwd_fn, args), dev)
+            row[f"{kind}_plain_ms"] = once_ms(
+                lambda: front_plain(fwd_fn, args, grad), dev)
+            for what, key in (("fwd", f"{kind}_fwd"), ("fwd_bwd", kind)):
+                row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = \
+                    bounds[kind, what]
+        reps = FRONT_LIB_REPS if card else 1
+        row["conv_library_fwd_ms"] = cuda_ms(lib[0], reps) if card \
+            else once_ms(lib[0], dev)
+        row["conv_library_ms"] = cuda_ms(lib[1], reps) if card \
+            else once_ms(lib[1], dev)
+        row["gate_library_ms"] = row["gate_library_fwd_ms"] = None
+        row["gate_rms_norm_fwd_ms"] = cuda_ms(rms[0], reps) if card \
+            else once_ms(rms[0], dev)
+        row["gate_rms_norm_ms"] = cuda_ms(rms[1], reps) if card \
+            else once_ms(rms[1], dev)
+        row["wall_s"] = time.perf_counter() - t0
+        rows.append(row)
+        for kind, names in (("conv", ("dx", "dw", "db")),
+                            ("gate", ("dy", "dz", "dw", "dx", "dD"))):
+            r = row[kind]
+            log(f"  {kind} {label} ({dt_name}): rms shares needed: out "
+                f"{r['share_needed']:.3g} (fp32 plain), "
+                f"{r['share_needed_ref']:.3g} (reference dtypes), "
+                + ", ".join(f"{k_} {r['grad_share_needed'][k_]:.3g}"
+                            for k_ in names)
+                + " (fp32 autograd), "
+                + ", ".join(f"{k_} {r['grad_share_needed_plain'][k_]:.3g}"
+                            for k_ in names)
+                + f" (plain backward)"
+                + (f"; no skip {r['no_skip_share_needed']:.3g} / "
+                   f"{r['no_skip_share_needed_ref']:.3g}" if kind == "gate"
+                   else "")
+                + f"; fwd {row[kind + '_fwd_ms']:.4f} ms, "
+                f"fwd+bwd {row[kind + '_ms']:.4f} ms (bound "
+                f"{row[kind + '_fwd_bound_ms']:.4f} / "
+                f"{row[kind + '_bound_ms']:.4f} ms, "
+                f"{row[kind + '_bound_by']}; "
+                f"{100 * row[kind + '_fwd_bound_ms'] / row[kind + '_fwd_ms']:.1f}"
+                f"% / {100 * row[kind + '_bound_ms'] / row[kind + '_ms']:.1f}"
+                f"%); plain {row[kind + '_plain_fwd_ms']:.3f} / "
+                f"{row[kind + '_plain_ms']:.3f} ms")
+        log(f"    library: conv1d + silu {row['conv_library_fwd_ms']:.4f} / "
+            f"{row['conv_library_ms']:.4f} ms; gate none (F.rms_norm on its "
+            f"product {row['gate_rms_norm_fwd_ms']:.4f} / "
+            f"{row['gate_rms_norm_ms']:.4f} ms); planted faults "
+            + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in faults.items())
+            + f"; first call {row['first_call_s']:.2f} s; "
+            f"{row['wall_s']:.1f} s")
+        del a, lib, rms
+        if card:
+            torch.cuda.empty_cache()
+    out = {"rows": rows}
+    if card:
+        main = next(c for c in cases if c[0] == SSM_FRONT_MAIN)
+        other = next(c for c in cases if c[0] != SSM_FRONT_MAIN
+                     and c[7] == main[7] and c[2] < main[2])
+        out["graph"] = front_graph_check(main, other, gen, dev, failures)
+    if failures:
+        raise AssertionError("conv front / gated norm: "
+                             + "; ".join(failures))
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def front_calls_read() -> dict:
+    """The conv front's and the gated norm's calls by pass since the last
+    :func:`front_reset`."""
+    from repro_torch.kernels import causal_conv as CC, gated_norm as GN
+    return {"conv": dict(CC.launches_by_pass),
+            "gate": dict(GN.launches_by_pass)}
+
+
+def front_reset() -> None:
+    from repro_torch.kernels import causal_conv as CC, gated_norm as GN
+    CC.reset_launches()
+    GN.reset_launches()
+
+
+def front_calls_check(label: str, calls: dict, n_fwd: int,
+                      n_bwd: int) -> None:
+    """Each of the two kernels ran ``n_fwd`` forwards and ``n_bwd``
+    backwards in a run (2 forwards a Mamba sublayer a train step, one in
+    the block's recompute under remat, and a backward; a forward a
+    prefill)."""
+    want = {"fwd": n_fwd, "bwd": n_bwd}
+    if calls != {"conv": want, "gate": want}:
+        raise AssertionError(f"{label}: conv front / gated norm calls "
+                             f"{calls}, expected {want} each")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5387,11 +5980,12 @@ def main() -> int:
                  pool.submit(SS.build_library),
                  pool.submit(SS.build_library, SS.SOURCE_SM90)]
         report["triton_build_s"] = build_triton_kernels(dev) \
-            + build_train_kernels(dev)
+            + build_train_kernels(dev) + build_front_kernels(dev)
         libs = [f.result() for f in built]
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {', '.join(lib.name for lib in libs)} and the Triton SSD "
-        f"step, cross-entropy and AdamW kernels in {report['build_s']:.2f} s"
+        f"step, cross-entropy, AdamW, conv front and gated norm kernels in "
+        f"{report['build_s']:.2f} s"
         f" (Triton "
         f"{report['triton_build_s']:.2f} s of it)")
     for name, text in sorted(nvcc.BUILD_LOGS.items()):
@@ -5694,6 +6288,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"SSD chunk-scan phase done in {report['ssd_scan']['wall_s']:.1f} s "
         f"[{card}]")
+
+    # 16. the conv front and the gated norm, before the phases that run them
+    log("phase 16: the conv front's and the gated norm's kernels against "
+        "their plain versions")
+    report["front"] = front_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    log(f"conv front / gated norm phase done in "
+        f"{report['front']['wall_s']:.1f} s [{card}]")
 
     # 10. LM serving (python -m repro_torch.launch.serve) and its kernels -----
     t0 = time.perf_counter()
@@ -6045,6 +6647,43 @@ def main() -> int:
         "fwd_bound_ms": sc["fwd_bound_ms"],
         "fwd_plain_ms": sc["plain_fwd_ms"],
     }]
+    fr = main_row(report["front"]["rows"], case=SSM_FRONT_MAIN)
+    # 11c's, 13b''s and 13c's calls: a forward one launch, a backward two
+    fr_calls = {k: {p: sum(r["front_calls"][k][p] for r in sc_runs)
+                    for p in ("fwd", "bwd")} for k in ("conv", "gate")}
+    for name, kind, source, replaces, lib in (
+            ("causal_conv", "conv", "causal_conv.py", "ssm.py:68",
+             ("conv_library_ms", "conv_library_fwd_ms")),
+            ("gated_norm", "gate", "gated_norm.py", "ssm.py:140",
+             (None, None))):
+        calls = fr_calls[kind]
+        kernels.append({
+            "name": name,
+            "route": "triton",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/models/{replaces}",
+            "launches": calls["fwd"] + 2 * calls["bwd"],
+            "calls_by_pass": calls,
+            "max_abs_err": max(r[kind]["max_abs_err"]
+                               for r in report["front"]["rows"]),
+            # forward + backward at mamba2-780m's 11c shape (B 4 x S 2048;
+            # conv_dim 3328, d_in 3072) by graph replay; plain: the
+            # reference's arithmetic in its dtypes under autograd, the
+            # card's path before the kernel; library: the conv's
+            # depth-wise F.conv1d + F.silu, none for the gate (rms_norm_ms:
+            # F.rms_norm on its product, for reference)
+            "ms": fr[f"{kind}_ms"],
+            "plain_ms": fr[f"{kind}_plain_ms"],
+            "bound_ms": fr[f"{kind}_bound_ms"],
+            "bound_by": fr[f"{kind}_bound_by"],
+            "library_ms": fr[lib[0]] if lib[0] else None,
+            "fwd_ms": fr[f"{kind}_fwd_ms"],
+            "fwd_bound_ms": fr[f"{kind}_fwd_bound_ms"],
+            "fwd_plain_ms": fr[f"{kind}_plain_fwd_ms"],
+            "fwd_library_ms": fr[lib[1]] if lib[1] else None,
+        })
+    kernels[-1]["rms_norm_ms"] = fr["gate_rms_norm_ms"]
+    kernels[-1]["fwd_rms_norm_ms"] = fr["gate_rms_norm_fwd_ms"]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -6058,7 +6697,8 @@ def main() -> int:
         "ssd_chunk_scan_sm90.cu on every bf16 launch, grouped_gemm.cu's"
         " tiles and the mma routes of flash_attention.cu and "
         "ssd_chunk_scan.cu for fp32), "
-        "ssd_decode_step, cross_entropy and adamw_step (triton)")
+        "ssd_decode_step, cross_entropy, adamw_step, causal_conv and "
+        "gated_norm (triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

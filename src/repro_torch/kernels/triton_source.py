@@ -1,7 +1,8 @@
 """Loading the Triton kernels' sources at first use.
 
-The Triton kernels (the SSD decode step, the cross-entropy, the AdamW
-step) live as plain modules under
+The Triton kernels (the SSD decode step, Mamba-2's causal conv front
+and gated norm, the cross-entropy, the AdamW step) live as plain
+modules under
 ``csrc/`` (beside the CUDA sources), outside the package: they import
 ``triton`` at their top, and this package is imported where there is no
 ``triton``.  A wrapper

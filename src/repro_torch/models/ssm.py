@@ -7,11 +7,17 @@ scores, and the ``(d_state, head_dim)`` recurrent state is carried
 across chunks (the reference's ``lax.scan``), in
 :func:`repro_torch.kernels.ssd_scan.ssd_chunk_scan`: the CUDA kernel
 (forward and backward) on CUDA tensors, the reference's einsums and a
-Python loop on the CPU and ``meta``.  Single-token decode is the
+Python loop on the CPU and ``meta``.  The causal conv front runs in
+:func:`repro_torch.kernels.causal_conv.causal_conv_silu` (reading its
+columns of the ``in_proj`` output in place) and the ``D`` skip, gate
+and norm in :func:`repro_torch.kernels.gated_norm.gated_norm`: Triton
+kernels (forward and backward) on CUDA tensors, the reference's
+arithmetic on the CPU and ``meta``.  Single-token decode is the
 constant-memory recurrence, whose state update and readout run in
 :func:`repro_torch.kernels.ssd_decode.ssd_decode_step`: the Triton
 kernel on CUDA (the state updated in place), its plain version on the
-CPU.
+CPU; its gate and norm in ``gated_norm`` (no skip: the step adds it);
+its conv window stays tensor code.
 
 Layer I/O matches an attention block (``(B, S, d_model) -> same``), so
 hybrid stacks interleave freely.
@@ -26,9 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.causal_conv import causal_conv_silu
+from ..kernels.gated_norm import gated_norm
 from ..kernels.ssd_decode import ssd_decode_step
 from ..kernels.ssd_scan import ssd_chunk_scan
-from .layers import _normal, dense_init, rmsnorm, softplus
+from .layers import _normal, dense_init, softplus
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "ssm_state_init"]
 
@@ -67,18 +75,6 @@ def _split_proj(cfg: ArchConfig, zxbcdt):
     g = s.n_groups
     return torch.split(zxbcdt, [d_in, d_in, g * s.d_state, g * s.d_state,
                                 nh], dim=-1)
-
-
-def _causal_conv(x, w, b):
-    """Depth-wise causal conv1d: x (B,S,C), w (K,C)."""
-    k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(k):                      # tiny static unroll (K=4)
-        out = out + xp[:, i:i + x.shape[1]] * w[i]
-    # the bias in the activations' dtype: the reference casts it with the
-    # stacked block parameters (2-D there), so it is in the compute dtype
-    return F.silu(out + b.to(out.dtype))
 
 
 def _ssm_region(p: Params, u, state, body):
@@ -128,22 +124,25 @@ def _ssm_apply_local(cfg: ArchConfig, p: Params,
     hp = s.head_dim
     f32 = torch.float32
 
-    z, x, B, C, dt_raw = _split_proj(cfg, u @ p["in_proj"])
-    xbc = _causal_conv(torch.cat([x, B, C], -1), p["conv_w"], p["conv_b"])
+    zxbcdt = u @ p["in_proj"]
+    z, _, _, _, dt_raw = _split_proj(cfg, zxbcdt)
+    # the conv reads concat([x, B, C]) where in_proj left it: its columns
+    # d_in .. d_in + conv_dim
+    xbc = causal_conv_silu(zxbcdt[..., d_in:d_in + conv_dim], p["conv_w"],
+                           p["conv_b"])
     x, B, C = torch.split(xbc, [d_in, g * s.d_state, g * s.d_state],
                           dim=-1)
 
     dt = softplus(dt_raw.to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])                              # (nh,)
-    x = x.reshape(bsz, S, nh, hp)
     # y_diag + y_off: the kernel on CUDA tensors, the reference's
     # arithmetic on the CPU and meta.  A in fp32: at bf16 compute the cast
     # A_log's values, converted exactly (dt * A promotes to fp32 alike)
-    y = ssd_chunk_scan(x, dt, A.to(f32), B.reshape(bsz, S, g, s.d_state),
+    y = ssd_chunk_scan(x.reshape(bsz, S, nh, hp), dt, A.to(f32),
+                       B.reshape(bsz, S, g, s.d_state),
                        C.reshape(bsz, S, g, s.d_state), s.chunk)
-    y = y + x * p["D"][..., None].to(u.dtype)
-    y = y.reshape(bsz, S, d_in)
-    y = rmsnorm(y * F.silu(z), p["norm_w"])
+    # rmsnorm((y + x D) silu(z), norm_w): the kernel on CUDA tensors
+    y = gated_norm(y.reshape(bsz, S, d_in), z, p["norm_w"], nh, x, p["D"])
     return y @ p["out_proj"]
 
 
@@ -196,7 +195,7 @@ def _ssm_decode_local(cfg: ArchConfig, p: Params, u: torch.Tensor,
                            C.reshape(bsz, g, s.d_state),
                            p["D"].to(torch.float32))
     y = y.reshape(bsz, 1, d_in).to(u.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_w"])
+    y = gated_norm(y, z, p["norm_w"], nh)
     out = y @ p["out_proj"]
     new_state = {"h": h, "conv": window[:, 1:].to(state["conv"].dtype)}
     return out, new_state
