@@ -34,8 +34,9 @@ import torch.nn.functional as F
 from . import triton_source
 
 __all__ = ["causal_conv_silu", "causal_conv_silu_ref",
-           "causal_conv_silu_bwd_ref", "causal_conv_silu_fwd_cuda",
-           "causal_conv_silu_bwd_cuda", "causal_conv_silu_cuda",
+           "causal_conv_pre_ref", "causal_conv_silu_bwd_ref",
+           "causal_conv_silu_fwd_cuda", "causal_conv_silu_bwd_cuda",
+           "causal_conv_silu_cuda",
            "CausalConvSilu", "launches_by_pass", "reset_launches",
            "PLANT_OLDEST_TAP", "K", "plan"]
 
@@ -57,11 +58,14 @@ _DTYPES = (torch.bfloat16, torch.float32)
 launches_by_pass: Dict[str, int] = {"fwd": 0, "bwd": 0}
 
 
-def causal_conv_silu_ref(x: torch.Tensor, w: torch.Tensor,
-                         b: torch.Tensor) -> torch.Tensor:
-    """Plain version, the reference's arithmetic: depth-wise causal
-    conv1d of ``x`` (B, S, C) by ``w`` (K, C), bias, SiLU; every tap's
-    product and sum in the activations' dtype."""
+def causal_conv_pre_ref(x: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """The pre-activation as the reference computes it: depth-wise causal
+    conv1d of ``x`` (B, S, C) by ``w`` (K, C), then the bias, in the
+    activations' dtype, ``(((x[t-3] w0 + x[t-2] w1) + x[t-1] w2) + x[t] w3)
+    + b`` with every tap's product and every partial sum rounded to it.
+    The kernels compute this chain (at bf16) and their backward's ``pre``
+    is it too."""
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)
@@ -69,24 +73,31 @@ def causal_conv_silu_ref(x: torch.Tensor, w: torch.Tensor,
         out = out + xp[:, i:i + x.shape[1]] * w[i]
     # the bias in the activations' dtype: the reference casts it with the
     # stacked block parameters (2-D there), so it is in the compute dtype
-    return F.silu(out + b.to(out.dtype))
+    return out + b.to(out.dtype)
+
+
+def causal_conv_silu_ref(x: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    """Plain version, the reference's arithmetic:
+    ``silu(causal_conv_pre_ref(x, w, b))``, SiLU in the activations'
+    dtype."""
+    return F.silu(causal_conv_pre_ref(x, w, b))
 
 
 def causal_conv_silu_bwd_ref(dy: torch.Tensor, x: torch.Tensor,
                              w: torch.Tensor, b: torch.Tensor
                              ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's algorithm as plain fp32 tensor code: ``(dx,
-    dw, db)`` in x's, w's and b's dtypes.  ``pre`` recomputed in fp32
-    (the bias rounded to x's dtype), ``dpre = dy * silu'(pre)``,
+    dw, db)`` in x's, w's and b's dtypes.  ``pre`` recomputed as the
+    forward computes it (:func:`causal_conv_pre_ref`, rounded as the
+    reference rounds), the rest in fp32: ``dpre = dy * silu'(pre)``,
     ``dx[t] = sum_j dpre[t + j] w[K - 1 - j]``, ``dw[K - 1 - j] =
     sum_t x[t] dpre[t + j]``, ``db = sum_t dpre[t]``."""
     k = w.shape[0]
     S = x.shape[1]
     f32 = torch.float32
     xf, wf = x.to(f32), w.to(f32)
-    xp = F.pad(xf, (0, 0, k - 1, 0))
-    pre = b.to(x.dtype).to(f32) + sum(xp[:, i:i + S] * wf[i]
-                                      for i in range(k))
+    pre = causal_conv_pre_ref(x, w, b).to(f32)
     sig = torch.sigmoid(pre)
     dpre = dy.to(f32) * sig * (1 + pre * (1 - sig))
     dp = F.pad(dpre, (0, 0, 0, k - 1))          # dpre at t + j, 0 past S

@@ -12,11 +12,21 @@ and SiLU,
 with x zero before t = 0 of each sequence.  The reference pads a copy
 of ``concat([x, B, C])`` and rounds every tap's product and partial sum
 to the compute dtype; these kernels read the columns of the ``in_proj``
-output in place (any row stride, the last dim contiguous), sum the taps,
-the bias (rounded to the compute dtype, as the reference casts it) and
-SiLU in fp32 and round once, into a contiguous (B, S, C) output.
+output in place (any row stride, the last dim contiguous) and, at bf16,
+round as the reference rounds, in its order (``_pre``):
 
-Backward: ``dpre = dy * silu'(pre)`` with ``pre`` recomputed,
+    pre = ((((x[t-3] w0) + x[t-2] w1) + x[t-1] w2) + x[t] w3) + bias
+
+every product and every sum rounded to bf16, by the card's own bf16
+arithmetic (``mul.rn.bf16x2``, ``add.rn.bf16x2``: one rounding an
+operation, two elements an instruction; a conversion pair in Triton
+may be folded away, and rounding fp32 values on their bits cost the
+forward 1.8x its time on an H100), the bias rounded to the compute
+dtype as the reference casts it; then SiLU in fp32, rounded once, into
+a contiguous (B, S, C) output.  fp32 sums in fp32.
+
+Backward: ``dpre = dy * silu'(pre)`` with ``pre`` recomputed by the same
+chain,
 ``dx[t] = sum_j dpre[t + j] * w[3 - j]`` in the input's dtype, and the
 column sums ``dw[i] = sum_t dpre[t] * x[t - 3 + i]`` and ``db = sum_t
 dpre[t]`` as fp32 partials a program (no atomics), summed by
@@ -48,19 +58,18 @@ import triton.language as tl
 
 @triton.jit
 def _taps(w_ptr, c, cmask, C):
-    """The four taps' weights at channels ``c``, in fp32."""
-    w0 = tl.load(w_ptr + c, mask=cmask, other=0.0).to(tl.float32)
-    w1 = tl.load(w_ptr + C + c, mask=cmask, other=0.0).to(tl.float32)
-    w2 = tl.load(w_ptr + 2 * C + c, mask=cmask, other=0.0).to(tl.float32)
-    w3 = tl.load(w_ptr + 3 * C + c, mask=cmask, other=0.0).to(tl.float32)
+    """The four taps' weights at channels ``c``, in their dtype."""
+    w0 = tl.load(w_ptr + c, mask=cmask, other=0.0)
+    w1 = tl.load(w_ptr + C + c, mask=cmask, other=0.0)
+    w2 = tl.load(w_ptr + 2 * C + c, mask=cmask, other=0.0)
+    w3 = tl.load(w_ptr + 3 * C + c, mask=cmask, other=0.0)
     return w0, w1, w2, w3
 
 
 @triton.jit
 def _row(row_ptr, s, stride, m):
-    """Row ``s`` (fp32), 0 where not ``m``."""
-    return tl.load(row_ptr + s.to(tl.int64) * stride, mask=m,
-                   other=0.0).to(tl.float32)
+    """Row ``s`` in its dtype, 0 where not ``m``."""
+    return tl.load(row_ptr + s.to(tl.int64) * stride, mask=m, other=0.0)
 
 
 @triton.jit
@@ -80,8 +89,39 @@ def _halo(xrow, t0, sxs, cmask):
 
 
 @triton.jit
-def _pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, x0):
-    return bias + w0 * xm3 + w1 * xm2 + w2 * xm1 + w3 * x0
+def _bmul(a, b):
+    """``a * b`` of bf16 tensors, rounded once to bf16 (two a 32-bit
+    register: ``mul.rn.bf16x2``)."""
+    return tl.inline_asm_elementwise("mul.rn.bf16x2 $0, $1, $2;", "=r,r,r",
+                                     [a, b], dtype=tl.bfloat16, is_pure=True,
+                                     pack=2)
+
+
+@triton.jit
+def _badd(a, b):
+    """``a + b`` of bf16 tensors, rounded once to bf16 (``add.rn.bf16x2``):
+    the same bits as the fp32 sum rounded, as the reference rounds it."""
+    return tl.inline_asm_elementwise("add.rn.bf16x2 $0, $1, $2;", "=r,r,r",
+                                     [a, b], dtype=tl.bfloat16, is_pure=True,
+                                     pack=2)
+
+
+@triton.jit
+def _pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, x0, ty: tl.constexpr):
+    """The pre-activation at one row, in fp32, from the rows and taps in
+    their dtype: at bf16 the reference's chain in bf16 arithmetic, each
+    tap's product and each partial sum rounded, the bias added last (the
+    products of bf16 values are exact in fp32, so a bf16 operation's one
+    rounding is the reference's fp32-then-bf16 rounding); fp32 in one
+    sum."""
+    if ty == tl.bfloat16:
+        p = _bmul(w0, xm3)
+        p = _badd(p, _bmul(w1, xm2))
+        p = _badd(p, _bmul(w2, xm1))
+        p = _badd(p, _bmul(w3, x0))
+        return _badd(p, bias).to(tl.float32)
+    else:
+        return bias + w0 * xm3 + w1 * xm2 + w2 * xm1 + w3 * x0
 
 
 @triton.jit
@@ -106,10 +146,10 @@ def conv_fwd_kernel(x_ptr, w_ptr, b_ptr, out_ptr, S, C, sxb, sxs, chunk,
     c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = c < C
     ty = out_ptr.dtype.element_ty
-    bias = tl.load(b_ptr + c, mask=cmask, other=0.0).to(ty).to(tl.float32)
+    bias = tl.load(b_ptr + c, mask=cmask, other=0.0).to(ty)
     w0, w1, w2, w3 = _taps(w_ptr, c, cmask, C)
     if FIRST_TAP == 1:
-        w0 = w0 * 0.0
+        w0 = tl.zeros_like(w0)
     xrow = x_ptr + bb.to(tl.int64) * sxb + c
     orow = out_ptr + (bb.to(tl.int64) * S) * C + c
     xm3, xm2, xm1 = _halo(xrow, t0, sxs, cmask)
@@ -118,10 +158,10 @@ def conv_fwd_kernel(x_ptr, w_ptr, b_ptr, out_ptr, S, C, sxb, sxs, chunk,
         xb = _row(xrow, s + 1, sxs, cmask & (s + 1 < t1))
         xc = _row(xrow, s + 2, sxs, cmask & (s + 2 < t1))
         xd = _row(xrow, s + 3, sxs, cmask & (s + 3 < t1))
-        ya = _silu(_pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, xa))
-        yb = _silu(_pre(bias, w0, w1, w2, w3, xm2, xm1, xa, xb))
-        yc = _silu(_pre(bias, w0, w1, w2, w3, xm1, xa, xb, xc))
-        yd = _silu(_pre(bias, w0, w1, w2, w3, xa, xb, xc, xd))
+        ya = _silu(_pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, xa, ty))
+        yb = _silu(_pre(bias, w0, w1, w2, w3, xm2, xm1, xa, xb, ty))
+        yc = _silu(_pre(bias, w0, w1, w2, w3, xm1, xa, xb, xc, ty))
+        yd = _silu(_pre(bias, w0, w1, w2, w3, xa, xb, xc, xd, ty))
         tl.store(orow + s.to(tl.int64) * C, ya.to(ty), mask=cmask & (s < t1))
         tl.store(orow + (s + 1).to(tl.int64) * C, yb.to(ty),
                  mask=cmask & (s + 1 < t1))
@@ -146,8 +186,12 @@ def conv_bwd_kernel(x_ptr, w_ptr, b_ptr, dy_ptr, dx_ptr, part_ptr, S, C,
     c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = c < C
     ty = dx_ptr.dtype.element_ty
-    bias = tl.load(b_ptr + c, mask=cmask, other=0.0).to(ty).to(tl.float32)
+    bias = tl.load(b_ptr + c, mask=cmask, other=0.0).to(ty)
     w0, w1, w2, w3 = _taps(w_ptr, c, cmask, C)
+    f0 = w0.to(tl.float32)
+    f1 = w1.to(tl.float32)
+    f2 = w2.to(tl.float32)
+    f3 = w3.to(tl.float32)
     xrow = x_ptr + bb.to(tl.int64) * sxb + c
     drow = dy_ptr + bb.to(tl.int64) * sdb + c
     orow = dx_ptr + (bb.to(tl.int64) * S) * C + c
@@ -170,26 +214,26 @@ def conv_bwd_kernel(x_ptr, w_ptr, b_ptr, dy_ptr, dx_ptr, part_ptr, S, C,
         xb = _row(xrow, s + 1, sxs, mb)
         xc = _row(xrow, s + 2, sxs, mc)
         xd = _row(xrow, s + 3, sxs, md)
-        da = _dpre(_row(drow, s, sds, ma),
-                   _pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, xa))
-        db = _dpre(_row(drow, s + 1, sds, mb),
-                   _pre(bias, w0, w1, w2, w3, xm2, xm1, xa, xb))
-        dc = _dpre(_row(drow, s + 2, sds, mc),
-                   _pre(bias, w0, w1, w2, w3, xm1, xa, xb, xc))
-        dd = _dpre(_row(drow, s + 3, sds, md),
-                   _pre(bias, w0, w1, w2, w3, xa, xb, xc, xd))
+        da = _dpre(_row(drow, s, sds, ma).to(tl.float32),
+                   _pre(bias, w0, w1, w2, w3, xm3, xm2, xm1, xa, ty))
+        db = _dpre(_row(drow, s + 1, sds, mb).to(tl.float32),
+                   _pre(bias, w0, w1, w2, w3, xm2, xm1, xa, xb, ty))
+        dc = _dpre(_row(drow, s + 2, sds, mc).to(tl.float32),
+                   _pre(bias, w0, w1, w2, w3, xm1, xa, xb, xc, ty))
+        dd = _dpre(_row(drow, s + 3, sds, md).to(tl.float32),
+                   _pre(bias, w0, w1, w2, w3, xa, xb, xc, xd, ty))
         # dx[t] = dpre[t] w3 + dpre[t + 1] w2 + dpre[t + 2] w1
         #         + dpre[t + 3] w0, at t = s - 3 .. s
         for u in tl.static_range(4):
             t = s - 3 + u
             if u == 0:
-                v = dm3 * w3 + dm2 * w2 + dm1 * w1 + da * w0
+                v = dm3 * f3 + dm2 * f2 + dm1 * f1 + da * f0
             elif u == 1:
-                v = dm2 * w3 + dm1 * w2 + da * w1 + db * w0
+                v = dm2 * f3 + dm1 * f2 + da * f1 + db * f0
             elif u == 2:
-                v = dm1 * w3 + da * w2 + db * w1 + dc * w0
+                v = dm1 * f3 + da * f2 + db * f1 + dc * f0
             else:
-                v = da * w3 + db * w2 + dc * w1 + dd * w0
+                v = da * f3 + db * f2 + dc * f1 + dd * f0
             tl.store(orow + t.to(tl.int64) * C, v.to(ty),
                      mask=cmask & (t >= t0) & (t < t1))
         # dw[i] gathers dpre[s] x[s - 3 + i] over the chunk's own rows
@@ -197,10 +241,17 @@ def conv_bwd_kernel(x_ptr, w_ptr, b_ptr, dy_ptr, dx_ptr, part_ptr, S, C,
         ob = tl.where(s + 1 < t1, db, 0.0)
         oc = tl.where(s + 2 < t1, dc, 0.0)
         od = tl.where(s + 3 < t1, dd, 0.0)
-        a0 += xm3 * oa + xm2 * ob + xm1 * oc + xa * od
-        a1 += xm2 * oa + xm1 * ob + xa * oc + xb * od
-        a2 += xm1 * oa + xa * ob + xb * oc + xc * od
-        a3 += xa * oa + xb * ob + xc * oc + xd * od
+        ym3 = xm3.to(tl.float32)
+        ym2 = xm2.to(tl.float32)
+        ym1 = xm1.to(tl.float32)
+        ya = xa.to(tl.float32)
+        yb = xb.to(tl.float32)
+        yc = xc.to(tl.float32)
+        yd = xd.to(tl.float32)
+        a0 += ym3 * oa + ym2 * ob + ym1 * oc + ya * od
+        a1 += ym2 * oa + ym1 * ob + ya * oc + yb * od
+        a2 += ym1 * oa + ya * ob + yb * oc + yc * od
+        a3 += ya * oa + yb * ob + yc * oc + yd * od
         ab += oa + ob + oc + od
         xm3 = xb
         xm2 = xc

@@ -21,10 +21,11 @@ and ``dD[h] = sum_rows sum_(cols of h) dv * x`` as fp32 partials a
 program (no atomics), summed in a fixed order by ``causal_conv.py``'s
 ``colsum_kernel``: graph replays are bit-equal.
 
-Why Triton: no tensor-core work.  A row reduction over d plus
-elementwise work, and column reductions for dw and dD: fused
-elementwise work and reductions, which Triton's blocks serve as well as
-CUDA C++.
+The gate's ``triton`` route: fp32 calls and bf16 views off 16-byte
+boundaries (``gated_norm_sm90.route``); aligned bf16 rows, the layer's,
+take ``gated_norm_sm90.cu``, which streams rows by bulk TMA copies and
+splits wide rows over a cluster.  No tensor-core work: a row reduction
+over d plus elementwise work, and column reductions for dw and dD.
 
 Bound on this card: bytes.  The forward reads y, x, z and writes the
 output, the backward reads dout, y, x, z and writes dy, dx and dz (2

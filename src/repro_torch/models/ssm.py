@@ -10,9 +10,9 @@ across chunks (the reference's ``lax.scan``), in
 Python loop on the CPU and ``meta``.  The causal conv front runs in
 :func:`repro_torch.kernels.causal_conv.causal_conv_silu` (reading its
 columns of the ``in_proj`` output in place) and the ``D`` skip, gate
-and norm in :func:`repro_torch.kernels.gated_norm.gated_norm`: Triton
-kernels (forward and backward) on CUDA tensors, the reference's
-arithmetic on the CPU and ``meta``.  Single-token decode is the
+and norm in :func:`repro_torch.kernels.gated_norm.gated_norm`: hand
+kernels (forward and backward; the gate's in CUDA C++ at bf16) on CUDA
+tensors, the reference's arithmetic on the CPU and ``meta``.  Single-token decode is the
 constant-memory recurrence, whose state update and readout run in
 :func:`repro_torch.kernels.ssd_decode.ssd_decode_step`: the Triton
 kernel on CUDA (the state updated in place), its plain version on the

@@ -111,6 +111,46 @@ def test_conv_ref_matches_reference(b, s, c, dtype):
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
 
 
+@pytest.mark.parametrize("seed", [1, 5])
+@pytest.mark.parametrize("b,s,c", CONV_SHAPES, ids=CONV_IDS)
+def test_conv_pre_chain_is_the_references_bits(monkeypatch, b, s, c, seed):
+    """At bf16 ``causal_conv_pre_ref`` (the chain the kernels and their
+    backward compute) == the pre-activation of ``repro``'s
+    ``_causal_conv`` (its SiLU made the identity), bit for bit: every
+    tap's product and partial sum rounded in the reference's order, the
+    bias last."""
+    x, w, bias, _ = _conv_inputs(seed, b, s, c, torch.bfloat16)
+    got = CC.causal_conv_pre_ref(x, w, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    monkeypatch.setattr(jax.nn, "silu", lambda v: v)
+    want = JS._causal_conv(*(_jx(t, jnp.bfloat16) for t in (x, w, bias)))
+    np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+
+
+def _bf16_bits(a):
+    """fp32 ``a`` rounded to bf16 (to nearest even) on its bits, as the
+    conv kernel's ``_round`` rounds, back in fp32."""
+    u = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("b,s,c", CONV_SHAPES, ids=CONV_IDS)
+def test_conv_kernel_chain_model(b, s, c):
+    """A numpy model of the conv kernel's bf16 ``_pre`` (fp32 products of
+    bf16 values, each product and partial sum rounded on its bits, the
+    bias last) == ``causal_conv_pre_ref`` bit for bit."""
+    x, w, bias, _ = _conv_inputs(9, b, s, c, torch.bfloat16)
+    xs, ws, bs = _np(x), _np(w), _np(bias)
+    xp = np.concatenate([np.zeros((b, K - 1, c), np.float32), xs], 1)
+    acc = _bf16_bits(xp[:, 0:s] * ws[0])
+    for i in range(1, K):
+        acc = _bf16_bits(acc + _bf16_bits(xp[:, i:i + s] * ws[i]))
+    acc = _bf16_bits(acc + bs)
+    np.testing.assert_array_equal(acc, _np(CC.causal_conv_pre_ref(x, w,
+                                                                   bias)))
+
+
 @pytest.mark.parametrize("b,s,c", CONV_SHAPES, ids=CONV_IDS)
 def test_conv_bwd_ref_matches_autograd_and_vjp(b, s, c):
     """``causal_conv_silu_bwd_ref``'s dx, dw, db == autograd of
