@@ -128,6 +128,18 @@ script exits non-zero):
    a larger B * KV (the counters stay where the graph saw them);
    ``ssd_decode_step`` (Triton) at mamba2-780m's 48 heads, d_state 128,
    head_dim 64 for B = 2, 4 and 128 (bf16 state), within ``SSD_TOL_*``;
+   the decode mixer (CUDA, ``csrc/ssm_decode_sm90.cu``, one launch a
+   layer a token: the conv window, dt, the state update and the gated
+   norm) at ``MIXER_CASES`` (mamba2-780m B 2, 4 and 128, jamba-1.5's
+   geometry at B 4, a reduced fp32 case) against its plain version in
+   the reference's dtypes: the output within ``MIXER_TOL_Y`` and each
+   row's scale within ``MIXER_TOL_SCALE``, the state within one bf16 ulp,
+   the new window bit-equal; two planted faults (the window unshifted,
+   one block's partial left out of the norm) refused; two decode steps
+   in one CUDA graph replayed bit-equal to eager calls, another batch's
+   call between replays; each case timed in turns with the ``unfused``
+   route (the chain the kernel replaces), beside the plain version and
+   the bound (:func:`mixer_phase`);
    ``int8_matmul`` (``ops.int8_matmul``, routed by its planner) bit-exact
    to ``cim_mvm`` on the 55 MVMs of phase 3 (summed beside the tile route,
    the bit-serial source's one-pass tiles, and ``torch._int_mm``); the
@@ -152,10 +164,12 @@ script exits non-zero):
    (``tuning.tuned(int8_kv_cache=True)``), the default mamba2-780m and
    olmoe-1b-7b greedy (16 layers, 6.92e9 parameters, under the CLI's
    local mesh), each with the decode kernels' launches counted (one per
-   attention or SSD layer per token, three grouped-GEMM launches per MoE
-   layer per token), its prefill s, decode s and tok/s, peak device
-   memory and the device-busy share of 8 steady decode steps (one
-   ``torch.profiler`` trace); (d) ``quantized_linear`` driven at
+   attention layer per token, one mixer kernel launch per SSM layer per
+   token on the ``sm90`` route and none on ``unfused``, three
+   grouped-GEMM launches per MoE layer per token), its prefill s, decode
+   s and tok/s, peak device memory, the device-busy share of 8 steady
+   decode steps (one ``torch.profiler`` trace) and their device events a
+   step; (d) ``quantized_linear`` driven at
    phi4-mini's decode projections, both routes equal to each other and to
    ``quantized_linear_ref`` (tolerance 0) and the backward, with
    ``int8_matmul``'s launches counted by route (all 4 on the stream
@@ -345,7 +359,9 @@ script exits non-zero):
 
 The ``launches`` of the ``kernels`` record count the main paths: the
 bit-serial kernel's those of phases 3, 7, 8 and 10d, ``int8_matmul``'s
-10d's, the decode kernels' 10c's, the training kernels' 11c's, the
+10d's, the decode kernels' 10c's (the Triton SSD step's 0: it runs
+only on the decode mixer's ``unfused`` route, which no 10c run plans, so
+its record says ``"main_path": false``), the training kernels' 11c's, the
 grouped GEMM's 10c's, 11c's and 13b's, the flash attention's 11c's,
 13a's and 13c's (a forward one launch, a backward three), the SSD chunk
 scan's 11c's, 13b''s and 13c's (on the sm90 route a forward four, a
@@ -359,7 +375,9 @@ cold from HBM, as a decode step reads it (``previous_ms``: the tile
 route; ``ms_l2_resident``: the same operands replayed, the weight in
 L2; ``ms_55``: over the 55 MVMs of phase 3, the entry's definition
 before the stream kernel); the decode attention at 10c's shape (B 4,
-64 slots, bf16, the last position); the SSD step at B 4; the
+64 slots, bf16, the last position); the SSD step at B 4; the decode
+mixer at mamba2-780m B 4 (``previous_ms``: its ``unfused`` route in
+turns); the
 cross-entropy's forward and backward at phi4-mini's 11c shape; the
 AdamW step (norm and every leaf's update) over phi4-mini's tree at 8
 layers with fp32 moments; the grouped GEMM's forward, dx and dw summed
@@ -392,6 +410,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -492,6 +511,34 @@ SSD_MAMBA2 = (48, 1, 128, 64)
 SSD_BATCHES = (2, 4, 128)
 SSD_TOL_Y = (1e-3, 1e-4)      # fp32 output: the same ops, another order
 SSD_TOL_H = (1e-6, 2.0 ** -7)  # bf16 state: one ulp of a rounding flip
+# 10a decode mixer (kernels/ssm_decode.py, the sm90 route): (label, B,
+# heads, d_state, head_dim, groups, dtype): mamba2-780m at 10b's B 2,
+# 10c's B 4 and B 128, jamba-1.5's Mamba sublayer at B 4, a reduced fp32
+# case (two groups)
+MIXER_CASES = [("mamba2 B 2", 2, 48, 128, 64, 1, "bfloat16"),
+               ("mamba2 B 4", 4, 48, 128, 64, 1, "bfloat16"),
+               ("mamba2 B 128", 128, 48, 128, 64, 1, "bfloat16"),
+               ("jamba B 4", 4, 128, 128, 128, 8, "bfloat16"),
+               ("reduced fp32", 2, 8, 16, 16, 2, "float32")]
+MIXER_MAIN = "mamba2 B 4"
+# the planted faults' cases, and the graph check's case and the other
+# batch called between its replays
+MIXER_FAULT_CASES = ("mamba2 B 4", "reduced fp32")
+MIXER_GRAPH = ("mamba2 B 4", "mamba2 B 2")
+# the output against the plain version in the reference's dtypes,
+# |got - want| <= a rms(want) + r |want|: at bf16 the conv, y, g and the
+# output round where the plain version rounds, but an fp32 sum in another
+# order (the conv's, y's over d_state, the norm's) can flip a rounding,
+# and a flipped x column moves y by D x's ulp (a: 0.02 of the rms), the
+# gate and the norm then round twice more (r: up to 4 ulps); fp32: the
+# same sums in another order.  The row's scale, sum(got want) /
+# sum(want^2) - 1, catches a norm off by a block's partial (a flip moves
+# it by about 1e-5 at bf16)
+MIXER_TOL_Y = {"bfloat16": (0.02, 2.0 ** -6), "float32": (1e-5, 1e-5)}
+MIXER_TOL_SCALE = {"bfloat16": 2e-4, "float32": 2e-6}
+# the state: one bf16 ulp; fp32 the same operations, x off by an ulp
+MIXER_TOL_H32 = (1e-6, 1e-5)
+MIXER_OPS = 6                 # fp32 operations a state element
 # 10a/10d quantized_linear at phi4-mini's projections for one decode
 # batch of 4 tokens: q, k/v, MLP in/gate, MLP out
 # the stream kernel's plan at each of QL_SHAPES on an H100 (132 SMs):
@@ -522,6 +569,7 @@ LOGIT_TOL = 0.03
 MOE_CHECKED_MIN = 0.25
 # 10c: the serving CLI at full depth, (label, argv, int8 KV cache)
 LM_SERVE_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
+PROFILE_STEPS = 8             # decode steps 10c traces a run
 LM_SERVE_RUNS = [
     ("phi4-mini-3.8b, bf16 KV", ["--arch", "phi4-mini-3.8b",
                                  "--temperature", "0"], False),
@@ -943,10 +991,11 @@ def graph_seq_ms(fns) -> float:
     return start.elapsed_time(end) / (3 * len(fns))
 
 
-def device_profile(fn, top: int = 5, cpu: bool = True):
+def device_profile(fn, top: Optional[int] = 5, cpu: bool = True):
     """One ``torch.profiler`` traced run of ``fn``: its host wall ms,
     the device's busy ms (sum of the device events' own time) and the
-    ``top`` device events by time as ``(ms, count, name)``.  ``cpu=False``
+    ``top`` device events by time (all with ``None``) as ``(ms, count,
+    name)``.  ``cpu=False``
     records the device's activity alone (a training step launches tens
     of thousands of kernels, whose host-side events the trace need not
     hold)."""
@@ -2286,6 +2335,241 @@ def attention_graph_check(q, kc, vc, positions, window, failures) -> dict:
             "replays_equal": same}
 
 
+def mixer_inputs(case, gen, device) -> tuple:
+    """A :data:`MIXER_CASES` case's inputs on ``device``, drawn from
+    ``gen``: the ``in_proj`` row, the window as the layer hands it on
+    (rows 1..3 of a (B, 4, conv_dim) tensor: a strided view), the state
+    and the cast model's parameters, all in the compute dtype; and the
+    groups."""
+    import torch
+    _, b, nh, n, hp, g, dt_name = case
+    dtype = getattr(torch, dt_name)
+    d_in = nh * hp
+    conv_dim = d_in + 2 * g * n
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                + shift).to(dtype)
+
+    zx = draw(b, 1, 2 * d_in + 2 * g * n + nh)
+    window = draw(b, 4, conv_dim)[:, 1:]
+    h = draw(b, nh, n, hp)
+    params = dict(conv_w=draw(4, conv_dim, scale=0.5),
+                  conv_b=draw(conv_dim, scale=0.3),
+                  dt_bias=draw(nh, scale=0.5),
+                  A_log=torch.log(torch.linspace(
+                      1.0, 16.0, nh, device=device)).to(dtype),
+                  D=draw(nh, scale=0.3, shift=1.0),
+                  norm_w=draw(d_in, scale=0.2, shift=1.0))
+    return zx, window, h, params, g
+
+
+def mixer_call(fn, zx, window, h, params, g, **kw):
+    return fn(zx, window, h, params["conv_w"], params["conv_b"],
+              params["dt_bias"], params["A_log"], params["D"],
+              params["norm_w"], g, **kw)
+
+
+def mixer_bound(case) -> tuple:
+    """``(ms, "bytes" | "operations")``: the mixer's least time, the
+    larger of its bytes (the state read and written, the ``in_proj``
+    row, the window read and the new one written, the output, the
+    parameters) at the HBM rate and ``MIXER_OPS`` fp32 operations a
+    state element at the fp32 peak."""
+    _, b, nh, n, hp, g, dt_name = case
+    es = 2 if dt_name == "bfloat16" else 4
+    d_in = nh * hp
+    conv_dim = d_in + 2 * g * n
+    state = b * nh * n * hp
+    n_bytes = es * (2 * state + b * (2 * d_in + 2 * g * n + nh)
+                    + 2 * b * 3 * conv_dim + b * d_in + 5 * conv_dim
+                    + 3 * nh + d_in)
+    t_b, t_o = n_bytes / PEAK_BYTES, MIXER_OPS * state / PEAK_F32_OPS
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def mixer_row_scale(got, want) -> float:
+    """The largest ``|sum(got want) / sum(want^2) - 1|`` over the batch
+    rows: a norm off by a share of its sum moves a whole row."""
+    g = got.float().reshape(got.shape[0], -1)
+    w = want.float().reshape(want.shape[0], -1)
+    return float(((g * w).sum(-1) / (w * w).sum(-1) - 1.0).abs().max())
+
+
+def mixer_agree(got, want, got_win, want_win, got_h, want_h,
+                dt_name: str) -> dict:
+    """The kernel's output, new window and state against the plain
+    version's: the output within ``MIXER_TOL_Y`` and ``MIXER_TOL_SCALE``,
+    the window bit-equal, the state within one bf16 ulp (fp32:
+    ``MIXER_TOL_H32``)."""
+    err, rel, ok_y = scaled_within(got, want, *MIXER_TOL_Y[dt_name])
+    scale = mixer_row_scale(got, want)
+    out = {"max_abs_err": err, "err_over_rms": rel,
+           "needed_share": needed_share(got, want, MIXER_TOL_Y[dt_name][1]),
+           "row_scale": scale,
+           "window_equal": bool(got_win.shape == want_win.shape
+                                and bool((got_win == want_win).all()))}
+    if dt_name == "bfloat16":
+        out["h_ulps"] = bf16_ulps(got_h, want_h)
+        ok_h = out["h_ulps"] <= 1
+    else:
+        out["h_err"], ok_h = within(got_h, want_h, *MIXER_TOL_H32)
+    out["ok"] = bool(ok_y and scale <= MIXER_TOL_SCALE[dt_name] and ok_h
+                     and out["window_equal"])
+    return out
+
+
+def mixer_graph_check(case, other, gen, device, failures) -> dict:
+    """Two decode steps of ``case`` (the second on the first's new
+    window, the state restored first) captured in one CUDA graph and
+    replayed 3 times, bit-equal to eager calls, an eager call of
+    ``other``'s batch before the last replay (:func:`graph_replay_check`):
+    the ticket counters put themselves back."""
+    from repro_torch.kernels import ssm_decode as M
+    zx, window, h, params, g = mixer_inputs(case, gen, device)
+    zx2 = zx * 0.5
+    h0 = h.clone()
+
+    def step():
+        h.copy_(h0)
+        y1, w1 = mixer_call(M.ssm_decode_mixer, zx, window, h, params, g)
+        y2, w2 = mixer_call(M.ssm_decode_mixer, zx2, w1, h, params, g)
+        return y1, w1, y2, w2, h.clone()
+
+    o_zx, o_win, o_h, o_params, o_g = mixer_inputs(other, gen, device)
+
+    def other_step():
+        mixer_call(M.ssm_decode_mixer, o_zx, o_win, o_h, o_params, o_g)
+
+    return graph_replay_check(case[0], other[0], step, other_step, failures,
+                              what="two decode steps")
+
+
+def mixer_criteria(rows) -> dict:
+    """The redesign's predictions, logged ``met`` / ``MISSED`` (not
+    raised): mamba2 B 4 at most 0.006 ms and faster than the unfused
+    chain, B 128 at most 0.075 ms, jamba's geometry at B 4 at least 60% of
+    its bound."""
+    by = {r["case"]: r for r in rows}
+    out = {}
+    if "mamba2 B 4" in by:
+        r = by["mamba2 B 4"]
+        out["mamba2 B 4 <= 0.006 ms"] = r["ms"] <= 0.006
+        out["mamba2 B 4 faster than unfused"] = r["ms"] < r["previous_ms"]
+    if "mamba2 B 128" in by:
+        out["mamba2 B 128 <= 0.075 ms"] = by["mamba2 B 128"]["ms"] <= 0.075
+    if "jamba B 4" in by:
+        r = by["jamba B 4"]
+        out["jamba B 4 >= 60% of bound"] = r["bound_ms"] >= 0.6 * r["ms"]
+    for k, v in out.items():
+        log(f"  decode mixer criterion {k}: {'met' if v else 'MISSED'}")
+    return out
+
+
+def mixer_phase(device, seed: int = 0, cases=MIXER_CASES) -> dict:
+    """Phase 10a's decode mixer: each case on the route the planner gives
+    it (``sm90`` on the card) against the plain version in the reference's
+    dtypes (:func:`mixer_agree`), the two planted faults at
+    ``MIXER_FAULT_CASES`` (the window unshifted; the first block's partial
+    left out of each row's norm) refused, a graph replay
+    (``MIXER_GRAPH``), and device times: the kernel and the ``unfused``
+    route in turns (kernel, unfused, unfused, kernel), the plain version,
+    the bound.  On the CPU (a rehearsal) the plain version stands in for
+    the kernel and no fault is planted.  Raises on a failed check."""
+    import torch
+    from repro_torch.kernels import ssm_decode as M
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    gen = torch.Generator(dev).manual_seed(seed)
+    rows, failures = [], []
+    for case in cases:
+        label, b, nh, n, hp, g, dt_name = case
+        zx, window, h, params, g = mixer_inputs(case, gen, dev)
+        fn = M.ssm_decode_mixer_cuda if card else M.ssm_decode_mixer
+        rt = mixer_call(M.route, zx, window, h, params, g)
+        if card and rt != "sm90":
+            failures.append(f"{label}: planned on {rt}, not sm90")
+            continue
+        want_h = h.clone()
+        want, want_win = mixer_call(M.ssm_decode_mixer_ref, zx, window,
+                                    want_h, params, g)
+        got_h = h.clone()
+        got, got_win = mixer_call(fn, zx, window, got_h, params, g)
+        row = {"case": label, "B": b, "heads": nh, "d_state": n,
+               "head_dim": hp, "groups": g, "dtype": dt_name, "route": rt,
+               "plan": list(M.plan(b, nh, n, hp, g, 4, zx.element_size()))}
+        row.update(mixer_agree(got, want, got_win, want_win, got_h, want_h,
+                               dt_name))
+        if not row["ok"]:
+            failures.append(f"{label}: {row}")
+        if card and label in MIXER_FAULT_CASES:
+            faults = {}
+            for fname, plant in (("shift", M.PLANT_SHIFT),
+                                 ("partial", M.PLANT_PARTIAL)):
+                bad_h = h.clone()
+                bad, bad_win = mixer_call(fn, zx, window, bad_h, params, g,
+                                          plant=plant)
+                agree = mixer_agree(bad, want, bad_win, want_win, bad_h,
+                                    want_h, dt_name)
+                faults[fname] = {"refused": not agree["ok"],
+                                 "row_scale": agree["row_scale"],
+                                 "window_equal": agree["window_equal"]}
+                if agree["ok"]:
+                    failures.append(f"{label}: planted fault {fname} passes "
+                                    f"{agree}")
+            row["faults"] = faults
+        hw = h.clone()
+
+        def kern():
+            mixer_call(fn, zx, window, hw, params, g)
+
+        def unfused():
+            mixer_call(fn, zx, window, hw, params, g, route="unfused")
+
+        t = [dev_ms(kern, dev)]
+        if card:
+            t += [dev_ms(unfused, dev), dev_ms(unfused, dev),
+                  dev_ms(kern, dev)]
+            row["previous_ms"] = (t[1] + t[2]) / 2
+        else:
+            row["previous_ms"] = None
+        row["ms"] = (t[0] + t[-1]) / 2
+        hp_ = h.clone()
+        row["plain_ms"] = dev_ms(lambda: mixer_call(
+            M.ssm_decode_mixer_ref, zx, window, hp_, params, g), dev)
+        row["bound_ms"], row["bound_by"] = mixer_bound(case)
+        row["library_ms"] = None
+        rows.append(row)
+        h_s = (f"h {row['h_ulps']} ulp" if "h_ulps" in row
+               else f"h |err| {row['h_err']:.2e}")
+        prev_s = ("-" if row["previous_ms"] is None
+                  else f"{row['previous_ms']:.4f}")
+        fault_s = "" if "faults" not in row else (
+            "; planted faults refused " + ", ".join(
+                f"{k} (row scale {v['row_scale']:.3g}, window equal "
+                f"{v['window_equal']})" for k, v in row["faults"].items()))
+        log(f"  decode mixer {label} {dt_name} ({rt}, plan {row['plan']}): "
+            f"|err| / rms {row['err_over_rms']:.3g} (needs "
+            f"{row['needed_share']:.3g} of the rms), row scale "
+            f"{row['row_scale']:.3g}, {h_s}, window equal "
+            f"{row['window_equal']}{fault_s}; kernel {row['ms']:.4f} ms, "
+            f"unfused {prev_s} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}%)")
+        del zx, window, h, params, got_h, want_h, hw, hp_
+    out = {"rows": rows}
+    if card and not failures:
+        by = {c[0]: c for c in cases}
+        if all(c in by for c in MIXER_GRAPH):
+            out["graph"] = mixer_graph_check(by[MIXER_GRAPH[0]],
+                                             by[MIXER_GRAPH[1]], gen, dev,
+                                             failures)
+    if failures:
+        raise AssertionError("decode mixer: " + "; ".join(failures))
+    out["criteria"] = mixer_criteria(rows)
+    return out
+
+
 def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
     """Phase 10a: each new kernel against its plain version on the card,
     on the shapes phase 10's runs launch and the cases of the port's
@@ -2479,6 +2763,11 @@ def lm_kernels_phase(recorded, device, seed: int = 0) -> dict:
             f"({row['bound_by']})")
 
     out["wall_s"]["ssd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- the decode mixer (ssm_decode_sm90.cu) ---------------------------------
+    out["mixer"] = mixer_phase(dev, seed)
+    out["wall_s"]["mixer"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     # -- int8_matmul: bit-exact to the bit-serial kernel ---------------------
@@ -2835,6 +3124,7 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
     from repro_torch.configs import ARCHS
     from repro_torch.data import make_batch
     from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import ssm_decode as M
     from repro_torch.launch import meshctx
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
@@ -2855,6 +3145,7 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
     flips, held = 0, 0
     mesh = local_mesh()
     GG.reset_launches()
+    M.reset_launches()
     for t in range(steps):
         tok = tokens[:, t:t + 1]
         r_dev, r_cpu = [], []
@@ -2891,6 +3182,12 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
     if dev.type == "cuda" and GG.ragged_dot.launches != 3 * n_moe * steps:
         raise AssertionError(f"{name}: {GG.ragged_dot.launches} grouped-GEMM "
                              f"launches, expected {3 * n_moe * steps}")
+    # every decode mixer call on the sm90 kernel
+    want = {r: 0 for r in M.ROUTES}
+    want["sm90"] = ssm_layers(cfg) * steps if dev.type == "cuda" else 0
+    if M.launches_by_route != want:
+        raise AssertionError(f"{name}: decode mixer calls by route "
+                             f"{M.launches_by_route}, expected {want}")
     return {"arch": name, "layers": layers, "steps": steps, "batch": batch,
             "wall_s": time.perf_counter() - t_start,
             "max_gap_over_range": worst,
@@ -2898,6 +3195,7 @@ def lm_model_phase(name: str, device, layers: int = LM_MODEL_LAYERS,
             "routing_flips": flips, "pairs_held": held,
             "grouped_gemm_launches": GG.ragged_dot.launches,
             "grouped_gemm_routes": dict(GG.launches_by_route),
+            "mixer_routes": dict(M.launches_by_route),
             "device_s": t_dev, "cpu_s": t_cpu}
 
 
@@ -2915,12 +3213,13 @@ def run_lm_serve(argv) -> tuple:
     return wall, buf.getvalue()
 
 
-def decode_profile(args, steps: int = 8) -> tuple:
+def decode_profile(args, steps: int = PROFILE_STEPS) -> tuple:
     """One ``torch.profiler`` trace of ``steps`` steady-state decode steps
     of the served configuration (``args`` as the CLI parsed them: its
     caches, the prompt stepped through first, then ``steps`` more tokens
     traced), built through the same entry points: :func:`device_profile`'s
-    ``(wall ms, device busy ms, top events)``."""
+    ``(wall ms, device busy ms, top events)`` and the device events in
+    all (kernels, copies and sets)."""
     import torch
     from repro_torch.configs import ARCHS, ShapeConfig, reduced
     from repro_torch.data import make_batch
@@ -2951,7 +3250,8 @@ def decode_profile(args, steps: int = 8) -> tuple:
             for t in range(args.prompt_len, end):
                 _, state = fn(params, state, tokens[:, t:t + 1])
 
-        return device_profile(run)
+        wall, busy, rows = device_profile(run, top=None)
+        return wall, busy, rows[:5], sum(r[1] for r in rows)
 
 
 def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
@@ -2961,17 +3261,20 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
     and ``extra`` arguments; the INT8 KV cache by
     ``tuning.tuned(int8_kv_cache=True)``), the decode kernels' launch
     counts set to 0 just before each run and read just after: one
-    attention launch per attention layer and token, one SSD launch per
-    SSD layer and token, three grouped-GEMM launches per MoE layer and
-    token (``moe_ep`` under the CLI's local mesh).  Prints the CLI's
-    lines; ``profile`` traces one more run of each for the device-busy
-    share."""
+    attention launch per attention layer and token, one decode-mixer call
+    per SSM layer and token, each on the ``sm90`` kernel (none on
+    ``unfused``, so no Triton SSD-step launch), three grouped-GEMM
+    launches per MoE layer and token (``moe_ep`` under the
+    CLI's local mesh).  Prints the CLI's lines; ``profile`` traces one
+    more run of each for the device-busy share and the device events a
+    decode step."""
     import re
     import torch
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import ssd_decode as SD
+    from repro_torch.kernels import ssm_decode as M
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import tuning
 
@@ -2990,18 +3293,23 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
         n_moe = moe_layers(cfg)
 
         def knob():
-            return (tuning.tuned(int8_kv_cache=True) if int8
-                    else contextlib.nullcontext())
+            stack = contextlib.ExitStack()
+            if int8:
+                stack.enter_context(tuning.tuned(int8_kv_cache=True))
+            return stack
 
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         DA.gqa_decode_attention.launches = 0
         SD.ssd_decode_step.launches = 0
+        M.reset_launches()
         GG.reset_launches()
         with knob():
             wall, text = run_lm_serve(argv)
         launched = (DA.gqa_decode_attention.launches,
-                    SD.ssd_decode_step.launches, GG.ragged_dot.launches)
+                    dict(M.launches_by_route), GG.ragged_dot.launches)
+        ssd_launched = SD.ssd_decode_step.launches
+        mixer_launched = M.ssm_decode_mixer.launches
         routes = dict(GG.launches_by_route)
         lines = text.strip().splitlines()
         m = re.fullmatch(r"prefill: (\S+)s  decode: (\S+)s \((\S+) tok/s\)",
@@ -3013,33 +3321,44 @@ def lm_serve_phase(runs=LM_SERVE_RUNS, extra=(), device=None,
                "wall_s": wall, "prefill_s": float(m.group(1)),
                "decode_s": float(m.group(2)), "tok_s": float(m.group(3)),
                "attention_launches": launched[0],
-               "ssd_launches": launched[1],
+               "mixer_routes": launched[1],
+               "mixer_launches": mixer_launched,
+               "ssd_launches": ssd_launched,
                "grouped_gemm_launches": launched[2],
                "grouped_gemm_routes": routes, "lines": lines}
         if on_card:
-            want = (tokens * n_attn, tokens * n_ssm, 3 * tokens * n_moe)
-            if launched != want:
-                raise AssertionError(f"{label}: launches {launched}, "
-                                     f"expected {want}")
+            mixer = {r: tokens * n_ssm if r == "sm90" else 0
+                     for r in M.ROUTES}
+            want = (tokens * n_attn, mixer, 3 * tokens * n_moe)
+            want_k = (tokens * n_ssm, 0)
+            if launched != want or (mixer_launched, ssd_launched) != want_k:
+                raise AssertionError(
+                    f"{label}: launches {launched}, mixer kernel "
+                    f"{mixer_launched}, SSD step {ssd_launched}; expected "
+                    f"{want}, {want_k}")
             gg_routes_check(label, routes, want[2])
             row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         if profile and on_card:
             with knob():
-                p_wall, busy, top = decode_profile(args)
+                p_wall, busy, top, events = decode_profile(args)
             row.update(profiled_wall_ms=p_wall, device_busy_ms=busy,
-                       top_device_events=top)
+                       top_device_events=top,
+                       device_events_per_step=events / PROFILE_STEPS)
         out.append(row)
         for line in lines:
             log(f"  {line}")
         msg = (f"  {label}: {wall:.2f} s in all, launches attention "
-               f"{launched[0]}, SSD {launched[1]}, grouped GEMM "
-               f"{launched[2]} (by route {routes})")
+               f"{launched[0]}, decode mixer {launched[1]} (sm90 kernel "
+               f"{mixer_launched}, Triton SSD step {ssd_launched}), grouped "
+               f"GEMM {launched[2]} (by route {routes})")
         if "peak_gb" in row:
             msg += f", peak device memory {row['peak_gb']:.2f} GB"
         if "device_busy_ms" in row:
             busy, p_wall = row["device_busy_ms"], row["profiled_wall_ms"]
-            msg += (f"; 8 traced decode steps: device busy {busy:.1f} of "
-                    f"{p_wall:.1f} ms ({100 * busy / p_wall:.1f}%)")
+            msg += (f"; {PROFILE_STEPS} traced decode steps: device busy "
+                    f"{busy:.1f} of {p_wall:.1f} ms ({100 * busy / p_wall:.1f}"
+                    f"%), {row['device_events_per_step']:.1f} device events "
+                    f"a step")
         log(msg)
     return {"runs": out}
 
@@ -4504,6 +4823,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
     from repro_torch.data import make_batch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels import ssm_decode as M
     from repro_torch.launch import meshctx, steps as lm_steps
     from repro_torch.launch.train import local_mesh
     from repro_torch.models import transformer as T
@@ -4556,10 +4876,17 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
         dec, _ = lm_steps.make_decode_step(
             cfg, dev, ShapeConfig("agree", s, b, "decode"))
         state = T.init_decode_state(cfg, cast, b, s)
+        M.reset_launches()
         with routing_recorded(r_dec):
             for t in range(s):
                 stepped, state = dec(cast, state, tokens[:, t:t + 1].to(dev))
         stepped = stepped.cpu()
+        mixer = dict(M.launches_by_route)
+        want = {r: 0 for r in M.ROUTES}
+        want["sm90"] = ssm_layers(cfg) * s if dev.type == "cuda" else 0
+        if mixer != want:
+            raise AssertionError(f"{name} decode: decode mixer calls by "
+                                 f"route {mixer}, expected {want}")
         if not hold_decode:
             dec_cpu, _ = lm_steps.make_decode_step(
                 cfg, "cpu", ShapeConfig("agree", s, b, "decode"))
@@ -4588,7 +4915,7 @@ def prefill_agree_phase(name: str, layers: int, device, seed: int = 0,
            "compute_dtype": cfg.compute_dtype, "flash_launches": flash,
            "flash_routes": flash_routes, "ssd_launches": ssd,
            "ssd_routes": ssd_routes, "front_calls": front,
-           "decode_held": hold_decode}
+           "mixer_routes": mixer, "decode_held": hold_decode}
     if not hold_decode:
         out["cpu_own_decode_gap_over_range"] = float(
             (host - own).abs().max()) / float(own.abs().max())
@@ -4916,7 +5243,7 @@ def fa_inputs(case, gen, device) -> tuple:
 
 
 def graph_replay_check(label: str, other_label: str, step, other_step,
-                       failures) -> dict:
+                       failures, what: str = "forward + backward") -> dict:
     """``step()`` (a forward and backward, returning its outputs) captured
     in one CUDA graph and replayed 3 times: each replay equal, bit for
     bit, to an eager call (the kernels are deterministic: no floating
@@ -4942,7 +5269,7 @@ def graph_replay_check(label: str, other_label: str, step, other_step,
     del graph
     if not all(same):
         failures.append(f"graph check: replays equal to eager {same}")
-    log(f"  {label}: forward + backward captured in one CUDA graph: 3 "
+    log(f"  {label}: {what} captured in one CUDA graph: 3 "
         f"replays equal to eager calls, the last after a {other_label} "
         f"call: {same}")
     return {"case": label, "other": other_label, "replays_equal": same}
@@ -6114,7 +6441,8 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels import gated_norm as GN
     from repro_torch.kernels import gated_norm_sm90 as GS
-    with ThreadPoolExecutor(10) as pool:
+    from repro_torch.kernels import ssm_decode as MX
+    with ThreadPoolExecutor(11) as pool:
         built = [pool.submit(bsm.build_library), pool.submit(DA.build_library),
                  pool.submit(I8.build_library), pool.submit(GG.build_library),
                  pool.submit(GG.build_sm90_library),
@@ -6122,7 +6450,8 @@ def main() -> int:
                  pool.submit(FA.build_library, FA.SOURCE_SM90),
                  pool.submit(SS.build_library),
                  pool.submit(SS.build_library, SS.SOURCE_SM90),
-                 pool.submit(GS.build_library)]
+                 pool.submit(GS.build_library),
+                 pool.submit(MX.build_library)]
         report["triton_build_s"] = build_triton_kernels(dev) \
             + build_train_kernels(dev) + build_front_kernels(dev)
         libs = [f.result() for f in built]
@@ -6585,6 +6914,9 @@ def main() -> int:
     attn = main_row(lmk["attention"], arch=ATTN_PHI4[0], B=4, S_cache=64,
                     kv="bf16", pos=63)
     ssd = main_row(lmk["ssd"], B=4)
+    mixer_rows = lmk["mixer"]["rows"]
+    mx = main_row(mixer_rows, case=MIXER_MAIN)
+    mx_routes = runs[0]["mixer_routes"].keys()
     i8 = lmk["int8_matmul"]
     i8_55 = lmk["int8_matmul_55"]
     kernels = [{
@@ -6640,6 +6972,10 @@ def main() -> int:
         "route": "triton",
         "source": "src/repro_torch/kernels/csrc/ssd_decode_step.py",
         "replaces": "src/repro/models/ssm.py:183",
+        # off the main path: the step runs only on the decode mixer's
+        # unfused route (other shapes and layouts), which no 10c run
+        # plans; 0, asserted in 10c
+        "main_path": False,
         "launches": sum(r["ssd_launches"] for r in runs),
         "max_abs_err": max(r["max_abs_err"] for r in lmk["ssd"]),
         "ms": ssd["ms"],
@@ -6647,6 +6983,33 @@ def main() -> int:
         "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"],
         "library_ms": ssd["library_ms"],
+    }, {
+        "name": "ssm_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_decode_sm90.cu",
+        "replaces": "src/repro/models/ssm.py:169",
+        "launches": sum(r["mixer_launches"] for r in runs),
+        "launches_by_route": {k: sum(r["mixer_routes"][k] for r in runs)
+                              for k in mx_routes},
+        "max_abs_err": max(r["max_abs_err"] for r in mixer_rows),
+        # the whole mixer at mamba2-780m B 4 bf16 (10c's shape) by graph
+        # replay; previous: the unfused route (the tensor code around the
+        # Triton step and the gate's kernel) in turns; plain: the
+        # reference's arithmetic, the card's path before the kernel
+        "ms": mx["ms"],
+        "previous_ms": mx["previous_ms"],
+        "plain_ms": mx["plain_ms"],
+        "bound_ms": mx["bound_ms"],
+        "bound_by": mx["bound_by"],
+        "library_ms": None,
+        "cases": {r["case"]: {k: r[k] for k in (
+            "ms", "previous_ms", "plain_ms", "bound_ms")}
+            for r in mixer_rows},
+        # 10c's traced decode steps of the runs through the mixer: device
+        # events a step
+        "device_events_per_step": {r["label"]: r.get(
+            "device_events_per_step") for r in runs
+            if r["mixer_routes"]["sm90"]},
     }]
     gg_rows = report["grouped_gemm"]["rows"]
     gg_train = [main_row(gg_rows, case="olmoe train B 4 x S 2048 up",
@@ -6837,20 +7200,22 @@ def main() -> int:
         rms_norm_ms=fr["gate_rms_norm_ms"],
         fwd_rms_norm_ms=fr["gate_rms_norm_fwd_ms"])
     for k in kernels:
-        if k["launches"] <= 0:
+        if k.get("main_path", True) and k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
     report["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
     log("kernels: bitserial_mvm, int8_matmul, gqa_decode_attention, "
-        "grouped_gemm, flash_attention, ssd_chunk_scan and gated_norm "
-        "(cuda, sm_90a; grouped_gemm_sm90.cu, flash_attention_sm90.cu, "
+        "ssm_decode, grouped_gemm, flash_attention, ssd_chunk_scan and "
+        "gated_norm (cuda, sm_90a; ssm_decode_sm90.cu on every decode "
+        "mixer call, grouped_gemm_sm90.cu, flash_attention_sm90.cu, "
         "ssd_chunk_scan_sm90.cu and gated_norm_sm90.cu on every bf16 "
         "launch, grouped_gemm.cu's tiles, the mma routes of "
         "flash_attention.cu and ssd_chunk_scan.cu and gated_norm's triton "
-        "route for fp32), ssd_decode_step, cross_entropy, adamw_step and "
-        "causal_conv (triton)")
+        "route for fp32), ssd_decode_step (the mixer's unfused route, off "
+        "the main path), cross_entropy, adamw_step and causal_conv "
+        "(triton)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ CUDA (:mod:`.decode_attention`; the CUDA sources built by :mod:`.nvcc`
 at first use), the grouped expert GEMM of expert-parallel MoE in CUDA
 (:mod:`.grouped_gemm`), the attention core and the Mamba-2 SSD chunk
 scan of training and prefill in CUDA (:mod:`.flash_attention`,
-:mod:`.ssd_scan`), the SSD decode step, Mamba-2's causal conv front and
+:mod:`.ssd_scan`), Mamba-2's whole decode mixer in CUDA
+(:mod:`.ssm_decode`), the SSD decode step, Mamba-2's causal conv front and
 gated output norm, the training loss's cross-entropy and the AdamW step
 in Triton (:mod:`.ssd_decode`, :mod:`.causal_conv`, :mod:`.gated_norm`,
 :mod:`.cross_entropy`, :mod:`.adamw`, their sources loaded by

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention import gqa_decode_attention
 from ..kernels.flash_attention import flash_attention_cuda
+from ..kernels.ssm_decode import softplus
 from ..launch.mesh import axis_size
 from .analysis_flags import FLAGS as _AFLAGS
 
@@ -66,14 +67,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 # jax.nn's definitions: gelu is the tanh approximation by default,
-# softplus is logaddexp(x, 0)
+# softplus is logaddexp(x, 0) (kernels.ssm_decode's, which the decode
+# mixer's plain version runs)
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
-                                          device=x.device))
 
 
 # ---------------------------------------------------------------------------

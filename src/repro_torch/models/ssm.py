@@ -13,11 +13,13 @@ columns of the ``in_proj`` output in place) and the ``D`` skip, gate
 and norm in :func:`repro_torch.kernels.gated_norm.gated_norm`: hand
 kernels (forward and backward; the gate's in CUDA C++ at bf16) on CUDA
 tensors, the reference's arithmetic on the CPU and ``meta``.  Single-token decode is the
-constant-memory recurrence, whose state update and readout run in
-:func:`repro_torch.kernels.ssd_decode.ssd_decode_step`: the Triton
-kernel on CUDA (the state updated in place), its plain version on the
-CPU; its gate and norm in ``gated_norm`` (no skip: the step adds it);
-its conv window stays tensor code.
+constant-memory recurrence: between ``in_proj`` and ``out_proj`` its
+whole mixer (the conv window, dt, the state update and readout, the
+gate and norm) runs in
+:func:`repro_torch.kernels.ssm_decode.ssm_decode_mixer`: one CUDA
+kernel launch a layer a token on CUDA tensors (the state updated in
+place, the ``in_proj`` row read where it lies), the reference's
+arithmetic on the CPU and ``meta``.
 
 Layer I/O matches an attention block (``(B, S, d_model) -> same``), so
 hybrid stacks interleave freely.
@@ -29,13 +31,12 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.causal_conv import causal_conv_silu
 from ..kernels.gated_norm import gated_norm
-from ..kernels.ssd_decode import ssd_decode_step
 from ..kernels.ssd_scan import ssd_chunk_scan
+from ..kernels.ssm_decode import ssm_decode_mixer
 from .layers import _normal, dense_init, softplus
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode", "ssm_state_init"]
@@ -173,29 +174,11 @@ def ssm_decode(cfg: ArchConfig, p: Params, u: torch.Tensor,
 
 def _ssm_decode_local(cfg: ArchConfig, p: Params, u: torch.Tensor,
                       state: Params) -> Tuple[torch.Tensor, Params]:
-    s, d_in, nh, conv_dim = _dims(cfg)
-    bsz = u.shape[0]
-    g, hp = s.n_groups, s.head_dim
-
-    z, x, B, C, dt_raw = _split_proj(cfg, u @ p["in_proj"])
-    xbc = torch.cat([x, B, C], -1)                          # (B,1,conv)
-    window = torch.cat([state["conv"], xbc.to(state["conv"].dtype)], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", window.to(u.dtype),
-                            p["conv_w"]) + p["conv_b"]
-    xbc1 = F.silu(conv_out)[:, None, :]
-    x, B, C = torch.split(xbc1, [d_in, g * s.d_state, g * s.d_state],
-                          dim=-1)
-
-    dt = softplus(dt_raw.to(torch.float32) + p["dt_bias"])[:, 0]
-    # the kernel takes A_log and D in fp32: at bf16 compute they are the
-    # cast's bf16 values, converted exactly
-    y, h = ssd_decode_step(state["h"], x.reshape(bsz, nh, hp), dt,
-                           p["A_log"].to(torch.float32),
-                           B.reshape(bsz, g, s.d_state),
-                           C.reshape(bsz, g, s.d_state),
-                           p["D"].to(torch.float32))
-    y = y.reshape(bsz, 1, d_in).to(u.dtype)
-    y = gated_norm(y, z, p["norm_w"], nh)
+    # the mixer reads the in_proj row where it lies and writes the gated,
+    # normed row out_proj reads; the new state over the old
+    y, window = ssm_decode_mixer(u @ p["in_proj"], state["conv"],
+                                 state["h"], p["conv_w"], p["conv_b"],
+                                 p["dt_bias"], p["A_log"], p["D"],
+                                 p["norm_w"], cfg.ssm.n_groups)
     out = y @ p["out_proj"]
-    new_state = {"h": h, "conv": window[:, 1:].to(state["conv"].dtype)}
-    return out, new_state
+    return out, {"h": state["h"], "conv": window}

@@ -146,7 +146,8 @@ _LM_MODULES = ["configs", "configs.base", "configs.phi4_mini_3_8b",
                "quant.quantize", "kernels.ops", "kernels.decode_attention",
                "kernels.ssd_decode", "kernels.ssd_scan",
                "kernels.causal_conv", "kernels.gated_norm",
-               "kernels.gated_norm_sm90", "kernels.triton_source",
+               "kernels.gated_norm_sm90", "kernels.ssm_decode",
+               "kernels.triton_source",
                "kernels.nvcc", "models",
                "models.analysis_flags", "models.layers", "models.ssm",
                "models.transformer", "models.model_zoo", "launch",
